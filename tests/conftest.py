@@ -23,6 +23,9 @@ def pytest_configure(config):
         "markers",
         "fast: quick core-engine tier (storage/planner/physical/optimizer/"
         "cardinality) — run with `make test-fast` / `pytest -m fast`")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one (run on the "
+        "card with `pytest -m gpu tests/test_torch_gpu.py`)")
 
 
 def _install_hypothesis_stub():
