@@ -6,11 +6,15 @@ NVIDIA card and check it end to end.
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device facts: card name and power limit (nvidia-smi), torch and CUDA
-     versions, and the build of the four CUDA kernels from ``csrc/``;
+     versions, and the build of the six CUDA kernels from ``csrc/``;
   2. every kernel against its plain PyTorch version on the card at the
-     reference sweep shapes (fp32 matmul 2e-4, bf16 2e-2; cosine and
-     logreg rtol 3e-4 / atol 3e-5; traversal exact, fused and batched);
-  3. the main path on ``m2bench.generate(sf=10, seed=0)``: a warm-up
+     reference sweep shapes (fp32 matmul 2e-4, bf16 2e-2; cosine, logreg,
+     flash attention and embedding bag rtol 3e-4 / atol 3e-5, bf16 flash
+     attention 2e-2; traversal exact, fused and batched), plus flash
+     attention at Qwen2's bf16 GQA shapes (prefill 512 x 512 and decode
+     against a 1024-position cache, ragged lengths) and the embedding bag
+     at 4096 bags x 16 over a 100k x 64 table;
+  3. the GCDIA main path on ``m2bench.generate(sf=10, seed=0)``: a warm-up
      engine, then a fresh ``GredoEngine`` runs G1-G5 and q_opt_skew,
      ``analyze`` of A2, A3 and a_shard_reg, and A1 through
      ``analytics.regression``, with every launch counter set to 0 just
@@ -20,8 +24,22 @@ Phases (each raises on failure; the script then exits non-zero):
      versions within the tolerances above. Then each kernel is compared
      with its plain version and timed (CUDA events) on the very inputs
      the main path gave it;
-  4. one JSON line listing the kernels (launches, max error, times, bound);
-  5. the result line ``{"ok": true, "device": {...}}``.
+  4. the LM serving path: Qwen2-1.5B at full width and depth, bf16,
+     ``attn_impl="flash"``, random weights from ``torch.Generator(seed
+     0)`` on the card, driven through ``launch.serve`` (batch 8, prompt
+     512, 32 new tokens) and through ``ContinuousBatcher`` (4 slots,
+     max_len 1024, 12 requests of 32-512 prompt tokens and 8-32 new ones,
+     so slots refill mid-flight), each once with the counters set to 0
+     just before (the flash counter must move) and once more, timed.
+     Checks: the kernel against its plain version at every captured
+     prefill and decode call of the largest shape; the logits of a prefill
+     and 4 decode steps against the same weights through the plain
+     ``attn_impl="dense"`` path (max |flash - dense| <= 2e-2 * max
+     |dense|); and, in fp32 with 2 layers, the batcher's greedy tokens
+     against each request served alone (the prefill token must agree
+     exactly; the agreement rate of the decoded tokens is printed);
+  5. one JSON line listing the kernels (launches, max error, times, bound);
+  6. the result line ``{"ok": true, "device": {...}}``.
 
 Nothing of JAX or of the JAX package is imported. Without a CUDA device,
 or without the rest of the repository beside it, the script fails before
@@ -48,7 +66,16 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # exceed DEVICE_MAX_FRONTIER and they stay on the host matcher).
 SF = 10
 TOL = {"matmul": (2e-4, 2e-4), "matmul_bf16": (2e-2, 2e-2),
-       "cosine_sim": (3e-4, 3e-5), "logreg_grad": (3e-4, 3e-5)}
+       "cosine_sim": (3e-4, 3e-5), "logreg_grad": (3e-4, 3e-5),
+       "flash": (3e-4, 3e-5), "flash_bf16": (2e-2, 2e-2),
+       "embedding_bag": (3e-4, 3e-5)}
+# Serving-path checks of the bf16 model: flash against dense logits, as a
+# share of the logits' scale (bf16 rounds the residual stream differently
+# along the two paths over 28 layers).
+LOGIT_SCALE_TOL = 2e-2
+SERVE_ARCH = "qwen2-1.5b"
+GCDIA_KERNELS = ("matmul", "cosine_sim", "logreg_grad", "batched_hop")
+DEVICE = "cuda"
 
 
 def say(*parts) -> None:
@@ -174,7 +201,7 @@ def phase_sweep():
     from repro_torch.kernels.traversal import ref as tref
     from repro_torch.kernels.traversal.traversal import fused_hop
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     rng = np.random.default_rng(42)
 
     def t(a, dtype=torch.float32):
@@ -246,9 +273,60 @@ def phase_sweep():
                         tref.batched_hop_ref(*args, **kw)):
             assert_equal(f"batched_hop seed={seed} B={B}", a, b)
         n_checks += 1
+    n_checks += sweep_flash(rng, t) + sweep_embedding_bag(rng, t)
     torch.cuda.synchronize()
     say(f"phase 2: {n_checks} sweep cases, every kernel matches its plain "
         "version")
+
+
+def sweep_flash(rng, t) -> int:
+    import torch
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.transformer import _dense_attention
+    cases = [  # b, h, hk, sq, skv, causal, dh, dtype, lengths
+        (2, 4, 4, 64, 64, True, 64, torch.float32, None),
+        (2, 8, 2, 100, 100, True, 64, torch.float32, None),
+        (3, 8, 2, 1, 256, True, 64, torch.float32, None),
+        (2, 4, 2, 48, 96, False, 64, torch.float32, None),
+        (2, 4, 2, 32, 32, True, 16, torch.float32, [32, 32]),
+        (4, 12, 2, 512, 512, True, 128, torch.bfloat16, [512, 300, 511, 77]),
+        (8, 12, 2, 1, 1024, True, 128, torch.bfloat16, None)]
+    for b, h, hk, sq, skv, causal, dh, dtype, lens in cases:
+        q = t(rng.standard_normal((b, h, sq, dh)), dtype)
+        k = t(rng.standard_normal((b, hk, skv, dh)), dtype)
+        v = t(rng.standard_normal((b, hk, skv, dh)), dtype)
+        lens = t(rng.integers(max(sq, 1), skv + 1, b) if lens is None
+                 else lens, torch.int32)
+        tol = TOL["flash_bf16" if dtype == torch.bfloat16 else "flash"]
+        got = wrapper("flash_attention")(q, k, v, lens, causal=causal)
+        name = f"flash b={b} h={h}/{hk} sq={sq} skv={skv} dh={dh} {dtype}"
+        assert_close(name, got,
+                     flash_attention_ref(q, k, v, lens, causal=causal), *tol)
+        if dh == 16:       # the reference's check against the model's oracle
+            assert_close(name + " vs dense", got,
+                         _dense_attention(q, k, v, lens, True), *tol)
+    return len(cases)
+
+
+def embedding_bag_inputs(rng, t, nbags, bag, V, D, weighted=True):
+    import torch
+    idx = rng.integers(0, V, (nbags, bag)).astype("int32")
+    idx[0, 1:] = -1
+    table = t(rng.standard_normal((V, D)))
+    w = t(rng.random((nbags, bag))) if weighted else None
+    return table, t(idx, torch.int32), w
+
+
+def sweep_embedding_bag(rng, t) -> int:
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    cases = [(8, 4, 64, 16, True), (16, 8, 500, 32, True),
+             (16, 8, 500, 32, False), (4096, 16, 100_000, 64, True)]
+    for nbags, bag, V, D, weighted in cases:
+        args = embedding_bag_inputs(rng, t, nbags, bag, V, D, weighted)
+        assert_close(f"embedding_bag {nbags}x{bag} over {V}x{D}",
+                     wrapper("embedding_bag")(*args),
+                     embedding_bag_ref(*args), *TOL["embedding_bag"])
+    return len(cases)
 
 
 # ---------------------------------------------------------------------------
@@ -259,22 +337,35 @@ def phase_sweep():
 class Capture:
     """Records, per kernel, the last main-path call of those with the most
     work, so the kernels can later be compared and timed on exactly those
-    inputs (for logreg_grad that is A1's last step, at trained weights)."""
+    inputs (for logreg_grad that is A1's last step, at trained weights).
+    ``kind`` splits a kernel's calls (flash attention: prefill, decode);
+    ``counts`` holds each kind's launches, read from the wrapper's own
+    counter around every call; ``clone`` copies the recorded tensors (the
+    KV cache that flash attention reads is written again later)."""
 
     def __init__(self):
         self.calls: dict = {}
+        self.counts: dict = {}
         self._restore: list = []
 
-    def wrap(self, name, work):
+    def wrap(self, name, work, kind=None, clone=False):
+        import torch
         from repro_torch.kernels import wrapper_module
         mod = wrapper_module(name)
         orig = getattr(mod, name)
 
         def recorder(*args, **kw):
             w = work(*args, **kw)
-            if name not in self.calls or w >= self.calls[name][0]:
-                self.calls[name] = (w, args, kw)
-            return orig(*args, **kw)
+            key = name if kind is None else f"{name}/{kind(*args, **kw)}"
+            if key not in self.calls or w >= self.calls[key][0]:
+                kept = args if not clone else tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args)
+                self.calls[key] = (w, kept, kw)
+            before = mod.launches
+            out = orig(*args, **kw)
+            self.counts[key] = self.counts.get(key, 0) + mod.launches - before
+            return out
         setattr(mod, name, recorder)
         self._restore.append((mod, name, orig))
 
@@ -352,7 +443,7 @@ def phase_main():
     launches = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     say("phase 3 launches on the main path: " + json.dumps(launches))
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in GCDIA_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -418,6 +509,7 @@ def phase_main():
 
 
 def kernel_report(launches: dict, calls: dict) -> list:
+    """Rows of the four GCDIA kernels, at the main path's captured inputs."""
     import torch
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.cosine_sim.ref import cosine_sim_ref
@@ -426,7 +518,7 @@ def kernel_report(launches: dict, calls: dict) -> list:
     from repro_torch.kernels.traversal.ref import batched_hop_ref
 
     rows = []
-    for name in KERNELS:
+    for name in GCDIA_KERNELS:
         if name not in calls:
             raise AssertionError(f"{name}: no main-path call was captured")
         _, args, kw = calls[name]
@@ -485,22 +577,347 @@ def kernel_report(launches: dict, calls: dict) -> list:
             plain = lambda: batched_hop_ref(*args, **kw)           # noqa: E731
             shape = (f"B={B} C={C} capacity={capacity} frontier={n_front} "
                      f"candidates={n_cand}")
-        ms, host_ms = time_ms(lambda: kernel(*args, **kw))
-        plain_ms = time_ms(plain)[0]
-        say(f"{name} at {shape}: kernel {ms:.4f} ms (host issue "
-            f"{host_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-            f"bound {b[0]:.4f} ms ({b[1]}), library "
-            f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
-            f"max |err| {err:.3g}")
-        rows.append({"name": name, "route": "cuda",
-                     "source": KERNELS[name].source,
-                     "replaces": KERNELS[name].replaces,
-                     "launches": launches[name],
-                     "max_abs_err": err, "ms": ms, "host_ms": host_ms,
-                     "plain_ms": plain_ms,
-                     "bound_ms": b[0], "bound_by": b[1],
-                     "library_ms": library_ms, "shape": shape})
+        rows.append(report_row(name, name, launches[name], err,
+                               lambda: kernel(*args, **kw), plain, b,
+                               library_ms, shape))
     return rows
+
+
+def report_row(row_name, name, launches, err, run, plain, b, library_ms,
+               shape) -> dict:
+    """Time the kernel call ``run`` and its plain version; one JSON row."""
+    from repro_torch.kernels import KERNELS
+    ms, host_ms = time_ms(run)
+    plain_ms = time_ms(plain)[0]
+    say(f"{row_name} at {shape}: kernel {ms:.4f} ms (host issue "
+        f"{host_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"bound {b[0]:.4f} ms ({b[1]}), library "
+        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
+        f"max |err| {err:.3g}, launches {launches}")
+    return {"name": row_name, "route": "cuda",
+            "source": KERNELS[name].source,
+            "replaces": KERNELS[name].replaces,
+            "launches": launches,
+            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": library_ms, "shape": shape}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the LM serving path (Qwen2-1.5B, full width and depth)
+# ---------------------------------------------------------------------------
+
+
+def serve_requests(vocab):
+    """The batcher's traffic: 12 requests, prompts of 32-512 tokens and
+    8-32 new tokens, from a numpy seed."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(0)
+    return [Request(rid=i,
+                    prompt=rng.integers(0, vocab, int(rng.integers(32, 513)))
+                    .astype(np.int32),
+                    max_new=int(rng.integers(8, 33))) for i in range(12)]
+
+
+def flash_kind(q, *a, **kw) -> str:
+    return "decode" if q.shape[2] == 1 else "prefill"
+
+
+def flash_work(q, k, *a, **kw) -> int:
+    return q.shape[0] * q.shape[1] * q.shape[2] * k.shape[2]
+
+
+class PhaseTimer:
+    """Wraps a batcher's prefill and decode callables with synchronised
+    host timers (the batcher reads each result on the host right after)."""
+
+    def __init__(self, batcher):
+        import torch
+        self.s = {"prefill": 0.0, "decode": 0.0}
+        self.n = {"prefill": 0, "decode": 0}
+        for phase in ("prefill", "decode"):
+            fn = getattr(batcher, "_" + phase)
+
+            def timed(*a, _fn=fn, _phase=phase):
+                t0 = time.perf_counter()
+                out = _fn(*a)
+                torch.cuda.synchronize()
+                self.s[_phase] += time.perf_counter() - t0
+                self.n[_phase] += 1
+                return out
+            setattr(batcher, "_" + phase, timed)
+
+
+def run_serve(params, cfg, prompts):
+    """(a) the ``launch.serve`` path: prefill + 31 decode steps."""
+    import torch
+    from repro_torch.launch import serve
+    torch.cuda.reset_peak_memory_stats()
+    toks, timing = serve.generate(params, cfg, prompts, 32)
+    return toks, timing, torch.cuda.max_memory_allocated() / 2**30
+
+
+def run_batcher(params, cfg, timed=False):
+    """(b) continuous batching over ``serve_requests()``."""
+    import torch
+    from repro_torch.serving import ContinuousBatcher
+    torch.cuda.reset_peak_memory_stats()
+    b = ContinuousBatcher(params, cfg, n_slots=4, max_len=1024)
+    timer = PhaseTimer(b) if timed else None
+    t0 = time.perf_counter()
+    done = b.serve(serve_requests(cfg.vocab))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return done, b.stats, timer, wall, \
+        torch.cuda.max_memory_allocated() / 2**30
+
+
+def logits_trace(params, cfg, prompts, tokens=None, steps=4):
+    """Logits of one prefill and ``steps`` greedy decode steps; the decode
+    feeds ``tokens`` when given (so two paths see the same inputs)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    B, P = prompts.shape
+    cache = tf.init_cache(cfg, B, P + steps, prompts.device)
+    lens = torch.zeros(B, dtype=torch.int32, device=prompts.device)
+    logits, cache = tf.forward(params, prompts, cfg, cache=cache,
+                               cache_lengths=lens)
+    out, fed = [logits], []
+    nxt = torch.argmax(logits[:, -1], -1)[:, None]
+    for s in range(steps):
+        nxt = nxt if tokens is None else tokens[s]
+        fed.append(nxt)
+        logits, cache = tf.serve_step(params, cache, nxt, lens + P + s, cfg)
+        out.append(logits[:, None])
+        nxt = torch.argmax(logits, -1)[:, None]
+    return out, fed
+
+
+def profile_window(label, fn, top=5):
+    """One warm call of ``fn`` under ``torch.profiler``: host wall time (to
+    a synchronise), the device's busy time (union of its kernel, copy and
+    set intervals) and idle share, the number of device operations, and
+    the ``top`` kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        say(f"profile {label}: wall {wall_us / 1e3:.3f} ms; device time not "
+            "measured (the profiler saw no device event)")
+        return
+    busy, end = 0.0, float("-inf")
+    by_name: dict = {}
+    for s, e, name in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    tops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    say(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms (idle share {1 - busy / wall_us:.3f}), "
+        f"{len(spans)} device operations; top by device time: "
+        + "; ".join(f"{n[:60]} {t / 1e3:.3f} ms" for n, t in tops))
+
+
+def phase_serve():
+    import dataclasses
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ContinuousBatcher
+
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    cfg, params = serve.build(SERVE_ARCH, "full", dev)
+    torch.cuda.synchronize()
+    if cfg.attn_impl != "flash" or cfg.dtype != torch.bfloat16:
+        raise AssertionError(f"serve.build gave {cfg.attn_impl} {cfg.dtype}")
+    say(f"phase 4: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.param_count() / 1e9:.3f}"
+        f" B params, weights in {time.perf_counter() - t0:.2f} s (set-up)")
+    prompts = torch.randint(0, cfg.vocab, (8, 512), device=dev,
+                            generator=torch.Generator(dev).manual_seed(1))
+
+    cap, launches, stats = Capture(), {}, {}
+    cap.wrap("flash_attention", flash_work, kind=flash_kind, clone=True)
+    try:
+        for run, fn in (("serve", lambda: run_serve(params, cfg, prompts)),
+                        ("batcher", lambda: run_batcher(params, cfg))):
+            reset_launch_counts()
+            out = fn()
+            launches[run] = launch_counts()
+            if launches[run]["flash_attention"] == 0:
+                raise AssertionError(f"{run}: flash kernel never launched")
+            say(f"phase 4 launches on the {run} path: "
+                + json.dumps(launches[run]))
+            stats[run] = out
+    finally:
+        cap.close()
+    toks, _, _ = stats["serve"]
+    done = stats["batcher"][0]
+    for c in done:
+        if len(c.tokens) < 1 or not all(0 <= x < cfg.vocab for x in c.tokens):
+            raise AssertionError(f"batcher request {c.rid}: {c.tokens}")
+    if toks.shape != (8, 32) or bool(((toks < 0) | (toks >= cfg.vocab)).any()):
+        raise AssertionError(f"serve tokens {tuple(toks.shape)} out of range")
+
+    # the same two paths again, timed, without the capture's clones
+    toks2, timing, peak_a = run_serve(params, cfg, prompts)
+    if not torch.equal(toks, toks2):
+        raise AssertionError("serve: a second run gave other tokens")
+    say(f"(a) serve batch 8 x prompt 512, 32 new: prefill "
+        f"{timing['prefill_s'] * 1e3:.3f} ms, decode "
+        f"{timing['decode_tok_s']:.1f} tokens/s ({timing['decode_s'] * 1e3:.3f}"
+        f" ms for 31 steps), peak device memory {peak_a:.3f} GiB, flash "
+        f"launches {launches['serve']['flash_attention']}")
+    done2, bstats, timer, wall, peak_b = run_batcher(params, cfg, timed=True)
+    if [c.tokens for c in done2] != [c.tokens for c in done]:
+        raise AssertionError("batcher: a second run gave other tokens")
+    dec_tokens = sum(bstats["slot_occupancy"])    # one per active slot
+    say(f"(b) batcher 4 slots, 12 requests: {bstats['prefills']} prefills "
+        f"{timer.s['prefill'] * 1e3 / timer.n['prefill']:.3f} ms mean, "
+        f"{bstats['decode_steps']} decode steps "
+        f"{dec_tokens / timer.s['decode']:.1f} tokens/s "
+        f"({timer.s['decode'] * 1e3 / timer.n['decode']:.3f} ms per step, "
+        f"mean occupancy {dec_tokens / bstats['decode_steps']:.2f}), wall "
+        f"{wall * 1e3:.3f} ms, peak device memory {peak_b:.3f} GiB, flash "
+        f"launches {launches['batcher']['flash_attention']}")
+    cache = tf.init_cache(cfg, 8, 544, dev)
+    zeros = torch.zeros(8, dtype=torch.int32, device=dev)
+    profile_window("(a) prefill 8 x 512", lambda: tf.forward(
+        params, prompts, cfg, cache=cache, cache_lengths=zeros))
+    profile_window("(a) decode step at length 543", lambda: tf.serve_step(
+        params, cache, prompts[:, :1], zeros + 543, cfg))
+    del cache
+
+    # flash against the plain dense attention, same weights and tokens
+    flash_out, fed = logits_trace(params, cfg, prompts)
+    dense_out, _ = logits_trace(
+        params, dataclasses.replace(cfg, attn_impl="dense"), prompts, fed)
+    worst, agree = 0.0, 0
+    for i, (a, d) in enumerate(zip(flash_out, dense_out)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"flash logits step {i}: not finite")
+        err = float((a.float() - d.float()).abs().max())
+        scale = float(d.float().abs().max())
+        worst = max(worst, err / scale)
+        if err > LOGIT_SCALE_TOL * scale:
+            raise AssertionError(f"logits step {i}: max |flash - dense| "
+                                 f"{err} > {LOGIT_SCALE_TOL} * {scale}")
+        agree += int((a[:, -1].argmax(-1) == d[:, -1].argmax(-1)).sum())
+    say(f"flash vs dense logits (prefill + 4 decode steps, batch 8): max "
+        f"|diff| / max |dense| {worst:.4g} (limit {LOGIT_SCALE_TOL}), greedy "
+        f"agreement {agree}/{8 * len(flash_out)}")
+    del flash_out, dense_out, params
+    torch.cuda.empty_cache()
+
+    # fp32, 2 layers: the batcher against each request served alone
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    p32 = tf.cast_params(tf.init_params(
+        torch.Generator(dev).manual_seed(0), cfg32), cfg32)
+    batched = ContinuousBatcher(p32, cfg32, n_slots=4, max_len=1024).serve(
+        serve_requests(cfg.vocab))
+    reqs = serve_requests(cfg.vocab)
+    if [c.rid for c in batched] != [r.rid for r in reqs]:
+        raise AssertionError("fp32 batcher: completions out of order")
+    n_tok = 0
+    for req, comp in zip(reqs, batched):
+        alone = ContinuousBatcher(p32, cfg32, n_slots=1,
+                                  max_len=1024).serve([req])[0]
+        if comp.tokens != alone.tokens:
+            raise AssertionError(f"request {req.rid}: batched {comp.tokens} "
+                                 f"!= alone {alone.tokens}")
+        n_tok += len(alone.tokens)
+    say(f"fp32 2-layer batcher vs each request alone: {len(reqs)}/"
+        f"{len(reqs)} requests and {n_tok}/{n_tok} tokens identical")
+    del p32
+    torch.cuda.empty_cache()
+    return cap
+
+
+def flash_rows(cap) -> list:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rows = []
+    for kind in ("prefill", "decode"):
+        key = f"flash_attention/{kind}"
+        if key not in cap.calls:
+            raise AssertionError(f"{key}: no serving call was captured")
+        _, (q, k, v, lens), kw = cap.calls[key]
+        b, h, sq, dh = q.shape
+        hk, skv = k.shape[1], k.shape[2]
+        kernel = wrapper("flash_attention")
+        err = assert_close(f"{key} (serving path)", kernel(q, k, v, lens, **kw),
+                           flash_attention_ref(q, k, v, lens, **kw),
+                           *TOL["flash_bf16"])
+        # work of these inputs: the keys each query sees
+        lens_l = lens.long()
+        qpos = (lens_l[:, None] - sq
+                + torch.arange(sq, device=q.device)[None])
+        seen = torch.minimum(qpos + 1, torch.clamp(lens_l, max=skv)[:, None])
+        pairs = int(seen.clamp_min(0).sum()) * h
+        kv_read = int(torch.clamp(lens_l, max=skv).sum()) * hk * dh * 2
+        nbytes = (2 * q.numel() + kv_read) * q.element_size() + 4 * b
+        dtype = str(q.dtype).removeprefix("torch.")
+        bnd = bound_ms(nbytes, 4.0 * dh * pairs, dtype)
+        kpos = torch.arange(skv, device=q.device)
+        mask = ((kpos[None, None] < lens_l[:, None, None])
+                & (kpos[None, None] <= qpos[:, :, None]))[:, None]
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True))[0]
+        rows.append(report_row(
+            key, "flash_attention", cap.counts[key], err,
+            lambda: kernel(q, k, v, lens, **kw),
+            lambda: flash_attention_ref(q, k, v, lens, **kw), bnd, library_ms,
+            f"q {b}x{h}x{sq}x{dh} kv {b}x{hk}x{skv}x{dh} {dtype} lengths "
+            f"{lens.min().item()}-{lens.max().item()}"))
+    return rows
+
+
+def embedding_bag_row() -> dict:
+    """The embedding bag is on no path; its row is at the kernels_bench
+    shape, 4096 bags x 16 over a 100k x 64 fp32 table."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    rng = np.random.default_rng(7)
+    dev = torch.device(DEVICE)
+    table, idx, w = embedding_bag_inputs(
+        rng, lambda a, dt=torch.float32: torch.as_tensor(
+            np.asarray(a), device=dev).to(dt), 4096, 16, 100_000, 64)
+    kernel = wrapper("embedding_bag")
+    err = assert_close("embedding_bag (kernels_bench shape)",
+                       kernel(table, idx, w), embedding_bag_ref(table, idx, w),
+                       *TOL["embedding_bag"])
+    valid = idx >= 0
+    n_valid = int(valid.sum())
+    # each distinct table row read once, index and weight per slot, output
+    n_rows = int(torch.unique(idx[valid]).numel())
+    nbytes = n_rows * 64 * 4 + idx.numel() * 8 + 4096 * 64 * 4
+    lib_idx, lib_w = idx.clamp_min(0), w * valid
+    library_ms = time_ms(lambda: F.embedding_bag(
+        lib_idx, table, mode="sum", per_sample_weights=lib_w))[0]
+    return report_row(
+        "embedding_bag", "embedding_bag", 0, err,
+        lambda: kernel(table, idx, w),
+        lambda: embedding_bag_ref(table, idx, w),
+        (nbytes / PEAK_BYTES_S * 1e3, "bytes"), library_ms,
+        f"4096 bags x 16 over 100000x64 fp32 ({n_valid} valid slots, "
+        f"{n_rows} distinct rows)")
 
 
 def main() -> int:
@@ -517,6 +934,7 @@ def main() -> int:
     phase_sweep()
     launches, calls = phase_main()
     rows = kernel_report(launches, calls)
+    rows += flash_rows(phase_serve()) + [embedding_bag_row()]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

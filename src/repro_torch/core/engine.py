@@ -38,14 +38,16 @@ from . import traversal
 _match_by_joins = join_mod.match_by_joins
 
 
-def resolve_device(device: "torch.device | str | None") -> torch.device:
-    """The engine's device: the CUDA card unless the caller names another.
-    Without a card and without an explicit device this raises — the port
-    never falls back to the CPU on its own."""
+def resolve_device(device: "torch.device | str | None",
+                   who: str = "GredoEngine") -> torch.device:
+    """The device of ``who`` (the engine, the serving launcher): the CUDA
+    card unless the caller names another. Without a card and without an
+    explicit device this raises — the port never falls back to the CPU on
+    its own."""
     if device is None:
         if not torch.cuda.is_available():
-            raise RuntimeError("GredoEngine runs on a CUDA device and none "
-                               "is available; pass device='cpu' to run the "
+            raise RuntimeError(f"{who} runs on a CUDA device and none is "
+                               "available; pass device='cpu' to run the "
                                "plain PyTorch versions on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)

@@ -30,6 +30,13 @@ KERNELS = {
     "batched_hop": Kernel(f"{__name__}.traversal.traversal",
                           "src/repro_torch/csrc/traversal.cu",
                           "src/repro/kernels/traversal/traversal.py:123"),
+    "flash_attention": Kernel(
+        f"{__name__}.flash_attention.flash_attention",
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:97"),
+    "embedding_bag": Kernel(f"{__name__}.embedding_bag.embedding_bag",
+                            "src/repro_torch/csrc/embedding_bag.cu",
+                            "src/repro/kernels/embedding_bag/embedding_bag.py:56"),
 }
 
 

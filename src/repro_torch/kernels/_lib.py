@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIB_NAME = "libgredo_kernels.so"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_int64
 _SIGNATURES: dict[str, tuple[list, object]] = {
     "gredo_error_string": ([_I], ctypes.c_char_p),
     "gredo_matmul_f32": ([_P, _P, _P] + [_I] * 7 + [_P], _I),
@@ -38,6 +39,9 @@ _SIGNATURES: dict[str, tuple[list, object]] = {
     "gredo_hop_blocks": ([_I], _I),
     "gredo_hop_count": ([_P] * 10 + [_I] * 9 + [_P], _I),
     "gredo_hop_scatter": ([_P] * 14 + [_I] * 9 + [_P], _I),
+    "gredo_flash_f32": ([_P] * 5 + [_I] * 7 + [_F] + [_L] * 12 + [_P], _I),
+    "gredo_flash_bf16": ([_P] * 5 + [_I] * 7 + [_F] + [_L] * 12 + [_P], _I),
+    "gredo_embedding_bag_f32": ([_P] * 4 + [_I] * 4 + [_P], _I),
 }
 
 _lib: ctypes.CDLL | None = None

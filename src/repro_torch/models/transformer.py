@@ -1,0 +1,442 @@
+"""Decoder-only LM transformer of the port: the dense serving subset (GQA,
+RoPE, optional QKV bias, RMSNorm or LayerNorm, SwiGLU or GELU MLP, tied or
+separate head).
+
+Mirrors ``repro.models.transformer`` function for function, with PyTorch in
+place of JAX:
+  * Parameters are stacked over layers, as in the reference, and the layer
+    loop is a Python loop over the stacked tensors' first axis (the
+    reference's ``lax.scan``). ``remat`` has no effect: the serving path
+    takes no backward.
+  * Attention is ``attn_impl``: "chunked" (the online-softmax double loop),
+    "dense" (the oracle) or "flash" (the hand-written CUDA kernel on the
+    card, its plain PyTorch version on the CPU).
+  * Activations run in ``cfg.dtype`` (bf16 by default) and parameters are
+    kept in fp32; every weight is cast to ``cfg.dtype`` where it is used,
+    norms compute in fp32. :func:`cast_params` makes that cast once, ahead
+    of serving: the values are bit-identical and each step then reads the
+    weights in ``cfg.dtype`` instead of casting the fp32 masters anew.
+  * A forward with a KV cache writes the new K/V into the cache in place
+    and returns it (the reference returns an updated copy).
+
+Not ported yet: the MoE block (ROADMAP queue 1, item 10), the sharded
+decode attention and the mesh hooks (item 11), and ``loss_fn`` (training,
+item 10); each raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention.ops import flash_attention
+
+Params = dict
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str = "tiny"
+    n_layers: int = 2
+    d_model: int = 128
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    d_ff: int = 256
+    vocab: int = 1000
+    # MoE (n_experts=0 -> dense)
+    n_experts: int = 0
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    # variants
+    qkv_bias: bool = False
+    mlp: str = "swiglu"              # "swiglu" | "gelu"
+    norm: str = "rmsnorm"            # "rmsnorm" | "layernorm"
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    # execution
+    d_head: int = 0                  # 0 -> d_model // n_heads
+    attn_impl: str = "chunked"       # "chunked" | "dense" | "flash"
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    attn_window: int = 0             # >0 -> sliding-window attention (opt-in)
+    remat: bool = True
+    dtype: Any = torch.bfloat16
+    ce_chunk: int = 256              # cross-entropy sequence chunking
+    moe_groups: int = 1              # dispatch groups
+    # distribution hooks (not ported: set, they raise)
+    mesh: Any = None
+    mesh_dp: tuple = ()
+    kv_seq_shard: str = ""
+    moe_ep_axis: str = ""
+    moe_impl: str = "gspmd"
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    def param_count(self) -> int:
+        d, h, kv, dh, f, v, L = (self.d_model, self.n_heads, self.n_kv_heads,
+                                 self.head_dim, self.d_ff, self.vocab, self.n_layers)
+        attn = d * h * dh + 2 * d * kv * dh + h * dh * d
+        if self.qkv_bias:
+            attn += (h + 2 * kv) * dh
+        n_mats = 3 if self.mlp == "swiglu" else 2
+        if self.is_moe:
+            mlp = self.n_experts * n_mats * d * f + d * self.n_experts
+        else:
+            mlp = n_mats * d * f
+        per_layer = attn + mlp + 2 * d
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        return L * per_layer + emb + d
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k experts only)."""
+        if not self.is_moe:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        n_mats = 3 if self.mlp == "swiglu" else 2
+        inactive = self.n_layers * n_mats * d * f * (self.n_experts - self.top_k)
+        return self.param_count() - inactive
+
+
+def _not_ported(what: str, item: int):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
+                              f"item {item})")
+
+
+def _check_ported(cfg: TransformerConfig) -> None:
+    if cfg.is_moe:
+        _moe_block(cfg)
+    if cfg.mesh is not None or cfg.kv_seq_shard or cfg.moe_ep_axis:
+        _dist_decode_attention(cfg)
+
+
+def _moe_block(cfg: TransformerConfig):
+    _not_ported(f"the MoE block ({cfg.name}: {cfg.n_experts} experts)", 10)
+
+
+def _dist_decode_attention(cfg: TransformerConfig):
+    _not_ported("sharded decode attention and the mesh hooks", 11)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def init_params(gen: torch.Generator, cfg: TransformerConfig) -> Params:
+    """fp32 parameters stacked over layers, drawn from ``gen`` on
+    ``gen.device`` (the counterpart of the reference's ``init_params``:
+    same shapes and scales, other random numbers)."""
+    _check_ported(cfg)
+    d, h, kv, dh, f, v, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.n_layers)
+    dev = gen.device
+
+    def normal(*shape, scale):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32) * scale
+
+    def norm_init(*shape, scale=None):
+        return normal(*shape, scale=shape[-2] ** -0.5 if scale is None
+                      else scale)
+
+    def const(value, *shape):
+        return torch.full(shape, value, dtype=torch.float32, device=dev)
+
+    layer = {
+        "wq": norm_init(L, d, h * dh),
+        "wk": norm_init(L, d, kv * dh),
+        "wv": norm_init(L, d, kv * dh),
+        "wo": norm_init(L, h * dh, d),
+        "ln1": const(1.0, L, d),
+        "ln2": const(1.0, L, d),
+    }
+    if cfg.qkv_bias:
+        layer["bq"] = const(0.0, L, h * dh)
+        layer["bk"] = const(0.0, L, kv * dh)
+        layer["bv"] = const(0.0, L, kv * dh)
+    if cfg.norm == "layernorm":
+        layer["ln1_b"] = const(0.0, L, d)
+        layer["ln2_b"] = const(0.0, L, d)
+    layer["w_in"] = norm_init(L, d, f)
+    if cfg.mlp == "swiglu":
+        layer["w_gate"] = norm_init(L, d, f)
+    layer["w_out"] = norm_init(L, f, d, scale=f ** -0.5)
+
+    params = {
+        "embed": normal(v, d, scale=0.02),
+        "ln_f": const(1.0, d),
+        "layers": layer,
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = norm_init(d, v)
+    return params
+
+
+def params_from_arrays(tree) -> Params:
+    """The port's parameters, on the CPU, from the reference's, given as a
+    (nested) dict of numpy arrays (``jax.tree.map(np.asarray, params)``):
+    the model-side counterpart of ``storage.database_from_arrays``."""
+    if isinstance(tree, dict):
+        return {k: params_from_arrays(v) for k, v in tree.items()}
+    import numpy as np
+    return torch.from_numpy(np.array(tree))
+
+
+def cast_params(params: Params, cfg: TransformerConfig) -> Params:
+    """The serving copy of fp32 parameters: every weight that the forward
+    casts to ``cfg.dtype`` where it is used is cast here once; the norm
+    weights (``ln*``) stay fp32, as the forward uses them. The forward
+    gives bit-identical results on either copy."""
+    def cast(name, t):
+        return t if name.startswith("ln") else t.to(cfg.dtype)
+    out = {k: cast(k, t) for k, t in params.items() if k != "layers"}
+    out["layers"] = {k: cast(k, t) for k, t in params["layers"].items()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+
+def _norm(x, w, b=None):
+    xf = x.float()
+    if b is None:  # rmsnorm
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
+    else:
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + 1e-5)
+    y = y * w
+    if b is not None:
+        y = y + b
+    return y.to(x.dtype)
+
+
+def _rope(x, positions, theta):
+    """x: (B, S, H, Dh); positions: (B, S). Computed in fp32 (a bf16 x
+    times the fp32 tables promotes to fp32, as in jnp), cast back."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs    # (B, S, half)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     -1).to(x.dtype)
+
+
+def _positions_mask(lengths, S, Skv, k0, kc, causal, window, q0=0, qc=None):
+    """Mask (B,1,1,qc,kc) of keys k0..k0+kc for the queries q0..q0+qc of a
+    context of ``lengths`` tokens whose last S sit at the end."""
+    dev = lengths.device
+    qc = S if qc is None else qc
+    lens = lengths[:, None, None, None, None]
+    kpos = k0 + torch.arange(kc, device=dev)[None, None, None, None, :]
+    qpos = lens - S + q0 + torch.arange(qc, device=dev)[None, None, None, :,
+                                                         None]
+    mask = kpos < lens
+    if causal:
+        mask = mask & (qpos >= kpos)
+    if window:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def _dense_attention(q, k, v, lengths, causal, window=0):
+    """q: (B,H,S,D), k/v: (B,Hk,Skv,D). Oracle / small-shape path."""
+    B, H, S, D = q.shape
+    Hk, Skv = k.shape[1], k.shape[2]
+    g = H // Hk
+    qg = q.reshape(B, Hk, g, S, D)
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qg.float(), k.float()) * D ** -0.5
+    mask = _positions_mask(lengths, S, Skv, 0, Skv, causal, window)
+    s = torch.where(mask, s, -1e30)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m) * mask  # fully-masked rows -> exactly zero output
+    p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bkgqc,bkcd->bkgqd", p, v.float())
+    return o.reshape(B, H, S, D).to(q.dtype)
+
+
+def _chunked_attention(q, k, v, lengths, causal, q_chunk, kv_chunk, window=0):
+    """Flash-style online-softmax double loop over query and KV chunks.
+    Memory per step is O(B*H*qc*kc) instead of O(B*H*S*Skv). P is rounded
+    to V's dtype before P.V, as the reference does."""
+    B, H, S, D = q.shape
+    Hk, Skv = k.shape[1], k.shape[2]
+    g = H // Hk
+    qc = min(q_chunk, S)
+    kc = min(kv_chunk, Skv)
+    qpad, kpad = (-S) % qc, (-Skv) % kc
+    q = F.pad(q, (0, 0, 0, qpad))
+    k = F.pad(k, (0, 0, 0, kpad))
+    v = F.pad(v, (0, 0, 0, kpad))
+    nq, nk = (S + qpad) // qc, (Skv + kpad) // kc
+    qr = q.reshape(B, Hk, g, nq, qc, D)
+    kr = k.reshape(B, Hk, nk, kc, D)
+    vr = v.reshape(B, Hk, nk, kc, D)
+    scale = D ** -0.5
+
+    outs = []
+    for iq in range(nq):
+        qblk = qr[:, :, :, iq].float()                           # (B,Hk,g,qc,D)
+        m = torch.full((B, Hk, g, qc, 1), -1e30, device=q.device)
+        l = torch.zeros((B, Hk, g, qc, 1), device=q.device)
+        acc = torch.zeros((B, Hk, g, qc, D), device=q.device)
+        for jk in range(nk):
+            kblk, vblk = kr[:, :, jk], vr[:, :, jk]
+            s = torch.einsum("bkgqd,bkcd->bkgqc", qblk, kblk.float()) * scale
+            mask = _positions_mask(lengths, S, Skv, jk * kc, kc, causal,
+                                   window, q0=iq * qc, qc=qc)
+            s = torch.where(mask, s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new) * mask
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum(
+                "bkgqc,bkcd->bkgqd", p.to(vblk.dtype).float(), vblk.float())
+            m = m_new
+        o = acc / torch.where(l == 0.0, 1.0, l)
+        outs.append(o.to(q.dtype))
+    o = torch.stack(outs, 3)                                     # (B,Hk,g,nq,qc,D)
+    return o.reshape(B, H, S + qpad, D)[:, :, :S]
+
+
+def _write_cache(c, new, cache_lengths):
+    """Write ``new`` (B, Hk, S, dh) into the layer cache ``c`` (B, Hk, M,
+    dh) in place at per-row offsets ``cache_lengths``. The start is clamped
+    into [0, M - S], as ``lax.dynamic_update_slice`` clamps it in the
+    reference (torch indexing would raise instead)."""
+    B, _, M, _ = c.shape
+    S = new.shape[2]
+    start = cache_lengths.clamp(0, M - S)
+    pos = start[:, None] + torch.arange(S, device=c.device)[None, :]
+    rows = torch.arange(B, device=c.device)[:, None]
+    c[rows, :, pos] = new.transpose(1, 2)       # indexed dims first: (B,S,Hk,dh)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, *,
+            lengths: Optional[torch.Tensor] = None,
+            cache: Optional[Params] = None,
+            cache_lengths: Optional[torch.Tensor] = None,
+            return_hidden: bool = False):
+    """tokens: (B, S). Training/prefill: cache=None, returns (logits,
+    aux_loss). Decode: pass ``cache`` {k,v: (L, B, Hk, S_max, dh)} and
+    ``cache_lengths`` (B,) = tokens already in cache; the new K/V are
+    written into ``cache`` in place and (logits, cache) returned.
+
+    Token ids must lie in [0, vocab): the embedding gather raises on
+    others, where the reference's ``jnp.take`` does not (greedy ids are
+    always in range)."""
+    _check_ported(cfg)
+    B, S = tokens.shape
+    h, dh = cfg.n_heads, cfg.head_dim
+    dev = tokens.device
+    dt = cfg.dtype
+    x = params["embed"][tokens].to(dt)
+
+    if cache is not None:
+        positions = cache_lengths[:, None] + torch.arange(S, device=dev)[None]
+        total_lengths = cache_lengths + S
+    else:
+        if lengths is None:
+            lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+        positions = torch.arange(S, device=dev)[None, :].expand(B, S)
+        total_lengths = lengths
+
+    layers = params["layers"]
+    for li in range(cfg.n_layers):
+        lp = {name: t[li] for name, t in layers.items()}
+
+        xa = _norm(x, lp["ln1"], lp.get("ln1_b"))
+        q = xa @ lp["wq"].to(dt)
+        kk = xa @ lp["wk"].to(dt)
+        vv = xa @ lp["wv"].to(dt)
+        if cfg.qkv_bias:
+            q = q + lp["bq"].to(dt)
+            kk = kk + lp["bk"].to(dt)
+            vv = vv + lp["bv"].to(dt)
+        q = _rope(q.reshape(B, S, h, dh), positions, cfg.rope_theta)
+        kk = _rope(kk.reshape(B, S, cfg.n_kv_heads, dh), positions,
+                   cfg.rope_theta)
+        vv = vv.reshape(B, S, cfg.n_kv_heads, dh)
+        q = q.transpose(1, 2)               # (B, H, S, dh): views
+        kk = kk.transpose(1, 2)
+        vv = vv.transpose(1, 2)
+
+        if cache is not None:
+            katt, vatt = cache["k"][li], cache["v"][li]
+            _write_cache(katt, kk, cache_lengths)
+            _write_cache(vatt, vv, cache_lengths)
+        else:
+            katt, vatt = kk, vv
+
+        if cfg.attn_impl == "dense":
+            o = _dense_attention(q, katt, vatt, total_lengths, True,
+                                 cfg.attn_window)
+        elif cfg.attn_impl == "flash":
+            o = flash_attention(q, katt, vatt, total_lengths, causal=True)
+        else:
+            o = _chunked_attention(q, katt, vatt, total_lengths, True,
+                                   cfg.q_chunk, cfg.kv_chunk, cfg.attn_window)
+        o = o.transpose(1, 2).reshape(B, S, h * dh)
+        x = x + o @ lp["wo"].to(dt)
+
+        xm = _norm(x, lp["ln2"], lp.get("ln2_b"))
+        hmid = xm @ lp["w_in"].to(dt)
+        if cfg.mlp == "swiglu":
+            hmid = F.silu(xm @ lp["w_gate"].to(dt)) * hmid
+        else:
+            hmid = F.gelu(hmid, approximate="tanh")   # jax.nn.gelu's default
+        x = x + hmid @ lp["w_out"].to(dt)
+
+    x = _norm(x, params["ln_f"])
+    aux_loss = torch.zeros((), dtype=torch.float32, device=dev)
+    if return_hidden:
+        return x, aux_loss
+    head = params.get("head")
+    if head is None:
+        head = params["embed"].T
+    logits = x @ head.to(dt)
+    if cache is not None:
+        return logits, cache
+    return logits, aux_loss
+
+
+# ---------------------------------------------------------------------------
+# Train / serve steps
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(params, batch, cfg: TransformerConfig):
+    _not_ported("loss_fn (training)", 10)
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
+               device=None) -> Params:
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def serve_step(params, cache, tokens, cache_lengths, cfg: TransformerConfig):
+    """One decode step: tokens (B, 1) new tokens; returns (next_token_logits,
+    cache)."""
+    logits, cache = forward(params, tokens, cfg, cache=cache,
+                            cache_lengths=cache_lengths)
+    return logits[:, -1], cache

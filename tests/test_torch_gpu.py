@@ -1,19 +1,25 @@
 """Card-only tests: each hand-written CUDA kernel against its plain PyTorch
 version on the card at the reference sweep shapes, the wrappers' input
-checks, and the engine on the card against the same engine on the CPU.
+checks, the engine on the card against the same engine on the CPU, and the
+smoke-size LMs and serving scheduler on the card against the CPU.
 Skipped where there is no card; run on the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Imports neither JAX nor the JAX package (the card's machine runs the port
-alone). Tolerances: fp32 matmul 2e-4, bf16 2e-2; cosine and logreg rtol
-3e-4 / atol 3e-5 (different summation order); traversal exact."""
+alone). Tolerances: fp32 matmul 2e-4, bf16 2e-2; cosine, logreg, flash
+attention and embedding bag rtol 3e-4 / atol 3e-5 (different summation
+order), bf16 flash attention 2e-2; traversal exact."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import launch_counts, wrapper_module
 from repro_torch.kernels.cosine_sim.ref import cosine_sim_ref
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.logreg.ref import logreg_grad_ref
 from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.kernels.traversal import ref as tref
@@ -130,6 +136,69 @@ def test_batched_hop_kernel_matches_plain(cuda, seed, capacity, n, B):
                        tref.batched_hop_ref(*args, **kw))
 
 
+@pytest.mark.parametrize("b,h,hk,sq,skv,causal,dh,dtype", [
+    (2, 4, 4, 64, 64, True, 64, torch.float32),       # the reference sweep
+    (2, 8, 2, 100, 100, True, 64, torch.float32),
+    (3, 8, 2, 1, 256, True, 64, torch.float32),
+    (2, 4, 2, 48, 96, False, 64, torch.float32),
+    (2, 4, 2, 32, 32, True, 16, torch.float32),       # the dh-16 case
+    (2, 12, 2, 130, 130, True, 128, torch.bfloat16),  # Qwen2 GQA prefill
+    (3, 12, 2, 1, 300, True, 128, torch.bfloat16),    # Qwen2 GQA decode
+    (2, 8, 8, 70, 70, True, 80, torch.bfloat16),      # StableLM head dim
+])
+def test_flash_kernel_matches_plain(cuda, b, h, hk, sq, skv, causal, dh,
+                                    dtype):
+    q = torch.as_tensor(RNG.standard_normal((b, h, sq, dh)),
+                        device=cuda).to(dtype)
+    k = torch.as_tensor(RNG.standard_normal((b, hk, skv, dh)),
+                        device=cuda).to(dtype)
+    v = torch.as_tensor(RNG.standard_normal((b, hk, skv, dh)),
+                        device=cuda).to(dtype)
+    lens = torch.as_tensor(RNG.integers(max(sq, 1), skv + 1, b),
+                           device=cuda).int()
+    before = launch_counts()["flash_attention"]
+    got = kernel("flash_attention")(q, k, v, lens, causal=causal)
+    assert launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = (2e-2, 2e-2) if dtype == torch.bfloat16 else (3e-4, 3e-5)
+    torch.testing.assert_close(
+        got.float(), flash_attention_ref(q, k, v, lens, causal=causal).float(),
+        rtol=tol[0], atol=tol[1])
+
+
+def test_flash_kernel_reads_strided_views_and_whole_cache(cuda):
+    """The transformer's inputs: q a transposed (b, s, h, dh) view, k/v the
+    whole cache (skv = max_len) with lengths past the written part, one
+    length below sq (its first rows see no key and give 0)."""
+    b, s, h, hk, dh, M = 2, 5, 6, 2, 128, 40
+    q = torch.randn((b, s, h, dh), device=cuda).transpose(1, 2)
+    cache = torch.randn((3, b, hk, M, dh), device=cuda)
+    lens = torch.tensor([17, 3], dtype=torch.int32, device=cuda)
+    got = kernel("flash_attention")(q, cache[1], cache[2], lens)
+    assert got.stride() == q.stride()
+    want = flash_attention_ref(q, cache[1], cache[2], lens)
+    torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-5)
+    assert not got[1, :, :2].any()
+
+
+@pytest.mark.parametrize("nbags,bag,V,D,weighted", [
+    (8, 4, 64, 16, True), (16, 8, 500, 32, True), (16, 8, 500, 32, False),
+    (300, 16, 1000, 200, True)])
+def test_embedding_bag_kernel_matches_plain(cuda, nbags, bag, V, D,
+                                            weighted):
+    table = torch.as_tensor(RNG.standard_normal((V, D)), device=cuda).float()
+    idx = RNG.integers(0, V, (nbags, bag)).astype(np.int32)
+    idx[0, 1:] = -1
+    idx = torch.as_tensor(idx, device=cuda)
+    w = (torch.as_tensor(RNG.random((nbags, bag)), device=cuda).float()
+         if weighted else None)
+    before = launch_counts()["embedding_bag"]
+    got = kernel("embedding_bag")(table, idx, w)
+    assert launch_counts()["embedding_bag"] == before + 1
+    torch.testing.assert_close(got, embedding_bag_ref(table, idx, w),
+                               rtol=3e-4, atol=3e-5)
+
+
 def test_wrappers_reject_inputs_they_do_not_take(cuda):
     x = torch.ones((4, 4), device=cuda)
     with pytest.raises(TypeError):
@@ -143,6 +212,30 @@ def test_wrappers_reject_inputs_they_do_not_take(cuda):
                               torch.ones(4, device=cuda))
     with pytest.raises(ValueError, match="CUDA"):
         kernel("matmul")(x.cpu(), x.cpu())
+    q = torch.ones((1, 4, 3, 64), device=cuda)
+    kv = torch.ones((1, 2, 5, 64), device=cuda)
+    flash = kernel("flash_attention")
+    with pytest.raises(TypeError):
+        flash(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError):            # h not a multiple of hk
+        flash(torch.ones((1, 3, 3, 64), device=cuda), kv, kv)
+    with pytest.raises(ValueError):            # head dim above 128
+        big = torch.ones((1, 2, 3, 256), device=cuda)
+        flash(big, big, big)
+    with pytest.raises(ValueError):            # last dim not contiguous
+        flash(q, kv.transpose(2, 3), kv)
+    with pytest.raises(ValueError):            # lengths of another batch
+        flash(q, kv, kv, torch.ones(2, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash(q, kv.cpu(), kv)
+    bag = kernel("embedding_bag")
+    idx = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        bag(x, idx.long())
+    with pytest.raises(ValueError):
+        bag(x, idx, torch.ones((2, 2), device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        bag(x, idx.cpu())
 
 
 def test_engine_on_card_matches_cpu_and_launches_every_kernel(cuda):
@@ -172,4 +265,47 @@ def test_engine_on_card_matches_cpu_and_launches_every_kernel(cuda):
     w_p, loss_p = analytics.regression(X.cpu(), y.cpu(), iters=20)
     torch.testing.assert_close(w.cpu(), w_p, rtol=3e-4, atol=3e-5)
     after = launch_counts()
-    assert all(after[k] > before[k] for k in after), (before, after)
+    gcdia = ("matmul", "cosine_sim", "logreg_grad", "batched_hop")
+    assert all(after[k] > before[k] for k in gcdia), (before, after)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_1_5b", "stablelm_3b",
+                                  "starcoder2_3b"])
+def test_smoke_lm_on_card_matches_cpu(cuda, arch):
+    """The smoke-size model, same fp32 weights: the card (flash kernel)
+    against the CPU (plain versions), a full forward and a cached prefill +
+    decode step, and the scheduler's greedy tokens."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ContinuousBatcher, Request
+    cfg = dataclasses.replace(configs.get(arch).smoke_config(),
+                              dtype=torch.float32, attn_impl="flash")
+    cpu = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    gpu = {k: v for k, v in cpu.items() if k != "layers"}
+    gpu = {k: v.to(cuda) for k, v in gpu.items()}
+    gpu["layers"] = {k: v.to(cuda) for k, v in cpu["layers"].items()}
+    toks = torch.as_tensor(RNG.integers(0, cfg.vocab, (3, 40)))
+    before = launch_counts()["flash_attention"]
+    got, _ = tf.forward(gpu, toks.to(cuda), cfg)
+    assert launch_counts()["flash_attention"] == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), tf.forward(cpu, toks, cfg)[0],
+                               rtol=3e-4, atol=3e-5)
+    lens = torch.zeros(3, dtype=torch.int32)
+    c_cpu, c_gpu = tf.init_cache(cfg, 3, 64), tf.init_cache(cfg, 3, 64, cuda)
+    want, c_cpu = tf.forward(cpu, toks, cfg, cache=c_cpu, cache_lengths=lens)
+    got, c_gpu = tf.forward(gpu, toks.to(cuda), cfg, cache=c_gpu,
+                            cache_lengths=lens.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=3e-4, atol=3e-5)
+    nxt = toks[:, :1]
+    want, _ = tf.serve_step(cpu, c_cpu, nxt, lens + 40, cfg)
+    got, _ = tf.serve_step(gpu, c_gpu, nxt.to(cuda), (lens + 40).to(cuda),
+                           cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=3e-4, atol=3e-5)
+
+    rng = np.random.default_rng(1)
+    reqs = [(i, rng.integers(0, cfg.vocab, rng.integers(4, 30)),
+             int(rng.integers(3, 12))) for i in range(6)]
+    outs = [ContinuousBatcher(p, cfg, n_slots=2, max_len=64).serve(
+        [Request(rid=i, prompt=pr, max_new=m) for i, pr, m in reqs])
+        for p in (cpu, gpu)]
+    assert [c.tokens for c in outs[0]] == [c.tokens for c in outs[1]]

@@ -1,6 +1,8 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, the kernels' CUDA paths call no library
-kernel, the engine picks the card by default (and raises without one), and
+neither JAX nor the JAX package (a query, an analytics task and the serving
+launcher run in a fresh process without loading either), the kernels' CUDA
+paths call no library kernel, the engine picks the card by default (and
+raises without one), and
 ``chip_smoke.py`` fails without a card or without the repository."""
 import ast
 import os
@@ -42,10 +44,10 @@ def test_kernel_paths_call_no_library_kernel():
     """The wrappers and CUDA sources launch only the hand-written kernels;
     library calls belong to the plain versions (ref.py) alone."""
     banned_attrs = {"matmul", "mm", "bmm", "compile", "linear", "einsum",
-                    "scaled_dot_product_attention"}
+                    "scaled_dot_product_attention", "embedding_bag"}
     wrappers = [p for p in PORT.joinpath("kernels").rglob("*.py")
                 if p.name not in ("ref.py", "ops.py", "__init__.py")]
-    assert len(wrappers) == 5           # _lib.py + four kernel wrappers
+    assert len(wrappers) == 7           # _lib.py + six kernel wrappers
     for p in wrappers:
         for node in ast.walk(ast.parse(p.read_text())):
             assert not (isinstance(node, ast.BinOp)
@@ -53,7 +55,7 @@ def test_kernel_paths_call_no_library_kernel():
             assert not (isinstance(node, ast.Attribute)
                         and node.attr in banned_attrs), (p.name, node.attr)
     sources = list(PORT.joinpath("csrc").glob("*.cu*"))
-    assert len(sources) == 5
+    assert len(sources) == 7            # six .cu files and gemm.cuh
     for p in sources:
         text = p.read_text().lower()
         assert "cublas" not in text and "cudnn" not in text, p.name
@@ -74,10 +76,12 @@ def test_query_in_fresh_process_loads_neither_jax_nor_reference():
         "import sys\n"
         "from repro_torch.core import GredoEngine\n"
         "from repro_torch.data import m2bench\n"
+        "from repro_torch.launch import serve\n"
         "eng = GredoEngine(m2bench.generate(sf=1, seed=0), device='cpu')\n"
         "r = eng.query(m2bench.q_g3())\n"
         "out = eng.analyze(m2bench.a3_multiply())\n"
         "assert r.nrows > 0 and out.shape[0] == out.shape[1]\n"
+        "serve.main(['--device', 'cpu', '--gen', '4'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

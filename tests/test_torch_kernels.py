@@ -1,11 +1,12 @@
-"""The port's four kernels, held against the JAX package's Pallas kernels.
+"""The port's six kernels, held against the JAX package's Pallas kernels.
 
 The same numpy inputs, made from a seed, go through the Pallas kernel in
 interpret mode (as ``tests/test_kernels.py`` and
 ``tests/test_traversal_kernels.py`` run it on the CPU) and through the
 port's plain PyTorch version — the function the port's kernel is held to on
 the card. Tolerances are the reference sweep's: fp32 matmul 2e-4, bf16
-2e-2; cosine and logreg rtol 3e-4 / atol 3e-5; traversal exact. Also the
+2e-2; cosine, logreg, flash attention and embedding bag rtol 3e-4 / atol
+3e-5; traversal exact. Also the
 dispatch rules: a CPU tensor takes the plain version and never launches,
 ``use_kernel=True`` on a CPU tensor raises."""
 import jax.numpy as jnp
@@ -14,6 +15,10 @@ import pytest
 import torch
 
 from repro.kernels.cosine_sim.cosine_sim import cosine_sim as jax_cosine
+from repro.kernels.embedding_bag.embedding_bag import \
+    embedding_bag as jax_bag
+from repro.kernels.flash_attention.flash_attention import \
+    flash_attention as jax_flash
 from repro.kernels.logreg.logreg import logreg_grad as jax_logreg
 from repro.kernels.matmul.matmul import matmul as jax_matmul
 from repro.kernels.traversal import ops as jax_tops
@@ -21,6 +26,10 @@ from repro.kernels.traversal import traversal as jax_hop
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.cosine_sim.ops import cosine_sim
 from repro_torch.kernels.cosine_sim.ref import cosine_sim_ref
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.logreg.ops import logreg_grad
 from repro_torch.kernels.logreg.ref import logreg_grad_ref
 from repro_torch.kernels.matmul.ops import matmul
@@ -214,6 +223,73 @@ def test_traverse_chain_on_edgeless_graph():
     assert [len(c) for c in te] == [0]
 
 
+@pytest.mark.parametrize("b,h,hk,sq,skv,causal", [
+    (2, 4, 4, 64, 64, True),      # MHA train
+    (2, 8, 2, 100, 100, True),    # GQA, ragged seq
+    (3, 8, 2, 1, 256, True),      # decode
+    (2, 4, 2, 48, 96, False),     # bidirectional, q != kv
+])
+def test_flash_attention_matches_pallas(b, h, hk, sq, skv, causal):
+    q = RNG.standard_normal((b, h, sq, 64)).astype(np.float32)
+    k = RNG.standard_normal((b, hk, skv, 64)).astype(np.float32)
+    v = RNG.standard_normal((b, hk, skv, 64)).astype(np.float32)
+    lens = RNG.integers(max(sq, 1), skv + 1, b).astype(np.int32)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     jnp.asarray(lens), causal=causal, bq=32, bk=32,
+                     interpret=True)
+    got = flash_attention_ref(T(q), T(k), T(v), T(lens), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
+                               atol=3e-5)
+
+
+def test_flash_matches_pallas_and_model_dense_attention():
+    """dh 16: the plain version, the Pallas kernel and the port's dense
+    attention (the model's oracle path) agree."""
+    from repro_torch.models.transformer import _dense_attention
+    q = RNG.standard_normal((2, 4, 32, 16)).astype(np.float32)
+    k = RNG.standard_normal((2, 2, 32, 16)).astype(np.float32)
+    v = RNG.standard_normal((2, 2, 32, 16)).astype(np.float32)
+    lens = np.full((2,), 32, np.int32)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     jnp.asarray(lens), causal=True, bq=16, bk=16,
+                     interpret=True)
+    got = flash_attention_ref(T(q), T(k), T(v), T(lens), causal=True)
+    dense = _dense_attention(T(q), T(k), T(v), T(lens), True)
+    for out in (got, dense):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=3e-4,
+                                   atol=3e-5)
+
+
+def test_flash_fully_masked_rows_are_zero():
+    """length < sq: the first queries sit before position 0, see no key and
+    output 0 in both packages (the ``l == 0`` guard)."""
+    q = RNG.standard_normal((1, 2, 8, 16)).astype(np.float32)
+    k = RNG.standard_normal((1, 1, 8, 16)).astype(np.float32)
+    lens = np.array([3], np.int32)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k),
+                     jnp.asarray(lens), causal=True, bq=8, bk=8,
+                     interpret=True)
+    got = flash_attention_ref(T(q), T(k), T(k), T(lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
+                               atol=3e-5)
+    assert not got[:, :, :5].any() and got[:, :, 5:].abs().sum() > 0
+
+
+@pytest.mark.parametrize("nbags,bag,V,D", [(8, 4, 64, 16), (16, 8, 500, 32)])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_embedding_bag_matches_pallas(nbags, bag, V, D, weighted):
+    table = RNG.standard_normal((V, D)).astype(np.float32)
+    idx = RNG.integers(0, V, (nbags, bag)).astype(np.int32)
+    idx[0, 1:] = -1
+    w = RNG.random((nbags, bag)).astype(np.float32) if weighted else None
+    want = jax_bag(jnp.asarray(table), jnp.asarray(idx),
+                   None if w is None else jnp.asarray(w), interpret=True)
+    got = embedding_bag_ref(T(table), T(idx), None if w is None else T(w))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
+                               atol=3e-5)
+
+
 def _dispatch_cases():
     x = T(RNG.standard_normal((8, 4)).astype(np.float32))
     y = T(RNG.integers(0, 2, 8).astype(np.float32))
@@ -223,6 +299,11 @@ def _dispatch_cases():
     fm = torch.zeros(128, dtype=torch.bool)
     fm[:3] = True
     hop = (rp, ci, ei, fr, fm, mem, ep, ca)
+    q = T(RNG.standard_normal((2, 4, 3, 8)).astype(np.float32))
+    kv = T(RNG.standard_normal((2, 2, 5, 8)).astype(np.float32))
+    lens = torch.tensor([5, 4], dtype=torch.int32)
+    idx = torch.tensor([[0, 3, -1], [7, 7, 1]], dtype=torch.int32)
+    wb = T(RNG.random((2, 3)).astype(np.float32))
     return [
         ("matmul", lambda **k: matmul(x, x.T, **k), lambda: matmul_ref(x, x.T)),
         ("cosine_sim", lambda **k: cosine_sim(x, x, **k),
@@ -232,10 +313,15 @@ def _dispatch_cases():
         ("batched_hop",
          lambda **k: tops.fused_hop(*hop, capacity=128, chunk=8, **k),
          lambda: tref.fused_hop_ref(*hop, capacity=128, chunk=8)),
+        ("flash_attention",
+         lambda **k: flash_attention(q, kv, kv, lens, **k),
+         lambda: flash_attention_ref(q, kv, kv, lens)),
+        ("embedding_bag", lambda **k: embedding_bag(x, idx, wb, **k),
+         lambda: embedding_bag_ref(x, idx, wb)),
     ]
 
 
-@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("case", range(6))
 def test_cpu_tensor_takes_plain_version_and_never_launches(case):
     name, call, plain = _dispatch_cases()[case]
     before = launch_counts()
@@ -249,7 +335,7 @@ def test_cpu_tensor_takes_plain_version_and_never_launches(case):
     assert launch_counts() == before
 
 
-@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("case", range(6))
 def test_use_kernel_true_on_cpu_tensor_raises(case):
     name, call, _ = _dispatch_cases()[case]
     with pytest.raises(ValueError, match="CUDA"):
