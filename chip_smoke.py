@@ -10,10 +10,13 @@ Phases (each raises on failure; the script then exits non-zero):
   2. every kernel against its plain PyTorch version on the card at the
      reference sweep shapes (fp32 matmul 2e-4, bf16 2e-2; cosine, logreg,
      flash attention and embedding bag rtol 3e-4 / atol 3e-5, bf16 flash
-     attention 2e-2; traversal exact, fused and batched), plus flash
-     attention at Qwen2's bf16 GQA shapes (prefill 512 x 512 and decode
-     against a 1024-position cache, ragged lengths) and the embedding bag
-     at 4096 bags x 16 over a 100k x 64 table;
+     attention 2e-2; traversal exact, fused and batched), plus matmul at
+     1000x200x1000 and 129x17x257, flash attention at Qwen2's bf16 GQA
+     shapes (prefill 512 x 512 and decode against a 1024-position cache,
+     ragged lengths), its split-KV decode (a 4096-position cache, bf16 and
+     fp32), 77-query prefill, dh 80, 8 and 16 in bf16 and the strided
+     whole-cache views in both dtypes, and the embedding bag at 4096 bags
+     x 16 over a 100k x 64 table;
   3. the GCDIA main path on ``m2bench.generate(sf=10, seed=0)``: a warm-up
      engine, then a fresh ``GredoEngine`` runs G1-G5 and q_opt_skew,
      ``analyze`` of A2, A3 and a_shard_reg, and A1 through
@@ -38,7 +41,9 @@ Phases (each raises on failure; the script then exits non-zero):
      |dense|); and, in fp32 with 2 layers, the batcher's greedy tokens
      against each request served alone (the prefill token must agree
      exactly; the agreement rate of the decoded tokens is printed);
-  5. one JSON line listing the kernels (launches, max error, times, bound);
+  5. one JSON line listing the kernels (launches, max error, times: CUDA
+     events over back-to-back calls, the host's issue time and the device
+     time per call from the profiler; bound);
   6. the result line ``{"ok": true, "device": {...}}``.
 
 Nothing of JAX or of the JAX package is imported. Without a CUDA device,
@@ -139,6 +144,27 @@ def time_ms(fn) -> tuple[float, float]:
     return start.elapsed_time(end) / reps, host * 1e3 / n_host
 
 
+def device_ms(fn, calls=10) -> float | None:
+    """Device time per call of ``fn``: the summed durations of the device
+    operations it runs, under ``torch.profiler``, over ``calls`` warm
+    calls. Where the host's issue bounds back-to-back calls (``time_ms``'s
+    host time near its event time), this is the kernel's own time. None
+    when the profiler sees no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    return total / calls / 1e3 if total else None
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -209,7 +235,7 @@ def phase_sweep():
 
     n_checks = 0
     for m, k, n in [(32, 32, 32), (128, 128, 128), (100, 60, 130),
-                    (257, 129, 65)]:
+                    (257, 129, 65), (1000, 200, 1000), (129, 17, 257)]:
         for dtype, tol in ((torch.float32, TOL["matmul"]),
                            (torch.bfloat16, TOL["matmul_bf16"])):
             x = t(rng.standard_normal((m, k)), dtype)
@@ -290,7 +316,19 @@ def sweep_flash(rng, t) -> int:
         (2, 4, 2, 48, 96, False, 64, torch.float32, None),
         (2, 4, 2, 32, 32, True, 16, torch.float32, [32, 32]),
         (4, 12, 2, 512, 512, True, 128, torch.bfloat16, [512, 300, 511, 77]),
-        (8, 12, 2, 1, 1024, True, 128, torch.bfloat16, None)]
+        (8, 12, 2, 1, 1024, True, 128, torch.bfloat16, None),
+        # the tensor-core kernel and the split-KV path: decode over 32
+        # splits (row 1 leaves all but one wholly past its length); packed
+        # rows not a multiple of 64 with a length below sq; StableLM's dh 80
+        # (prefill and split decode); dh 8 and 16, zero-padded; fp32 split
+        # decode
+        (2, 12, 2, 1, 4096, True, 128, torch.bfloat16, [4000, 37]),
+        (3, 12, 2, 77, 200, True, 128, torch.bfloat16, [60, 150, 200]),
+        (2, 8, 8, 70, 70, True, 80, torch.bfloat16, None),
+        (1, 32, 32, 1, 500, True, 80, torch.bfloat16, [433]),
+        (2, 4, 2, 33, 40, True, 8, torch.bfloat16, [33, 40]),
+        (2, 4, 2, 32, 32, True, 16, torch.bfloat16, [32, 32]),
+        (2, 8, 2, 1, 1024, True, 64, torch.float32, [1000, 5])]
     for b, h, hk, sq, skv, causal, dh, dtype, lens in cases:
         q = t(rng.standard_normal((b, h, sq, dh)), dtype)
         k = t(rng.standard_normal((b, hk, skv, dh)), dtype)
@@ -305,7 +343,21 @@ def sweep_flash(rng, t) -> int:
         if dh == 16:       # the reference's check against the model's oracle
             assert_close(name + " vs dense", got,
                          _dense_attention(q, k, v, lens, True), *tol)
-    return len(cases)
+    # the transformer's inputs: q a transposed (b, s, h, dh) view, k/v
+    # per-layer views of the whole cache, one length below sq
+    for dtype in (torch.float32, torch.bfloat16):
+        q = t(rng.standard_normal((2, 5, 6, 128)), dtype).transpose(1, 2)
+        cache = t(rng.standard_normal((3, 2, 2, 40, 128)), dtype)
+        lens = t([17, 3], torch.int32)
+        got = wrapper("flash_attention")(q, cache[1], cache[2], lens)
+        name = f"flash strided whole cache {dtype}"
+        if got.stride() != q.stride() or bool(got[1, :, :2].any()):
+            raise AssertionError(f"{name}: layout or zero rows")
+        assert_close(name, got, flash_attention_ref(q, cache[1], cache[2],
+                                                    lens),
+                     *TOL["flash_bf16" if dtype == torch.bfloat16
+                          else "flash"])
+    return len(cases) + 2
 
 
 def embedding_bag_inputs(rng, t, nbags, bag, V, D, weighted=True):
@@ -588,9 +640,12 @@ def report_row(row_name, name, launches, err, run, plain, b, library_ms,
     """Time the kernel call ``run`` and its plain version; one JSON row."""
     from repro_torch.kernels import KERNELS
     ms, host_ms = time_ms(run)
+    dev_ms = device_ms(run)
     plain_ms = time_ms(plain)[0]
     say(f"{row_name} at {shape}: kernel {ms:.4f} ms (host issue "
-        f"{host_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"{host_ms:.4f} ms, device "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
+        f"plain {plain_ms:.4f} ms, "
         f"bound {b[0]:.4f} ms ({b[1]}), library "
         f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
         f"max |err| {err:.3g}, launches {launches}")
@@ -599,6 +654,7 @@ def report_row(row_name, name, launches, err, run, plain, b, library_ms,
             "replaces": KERNELS[name].replaces,
             "launches": launches,
             "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "device_ms": dev_ms,
             "plain_ms": plain_ms,
             "bound_ms": b[0], "bound_by": b[1],
             "library_ms": library_ms, "shape": shape}
@@ -850,6 +906,7 @@ def phase_serve():
 def flash_rows(cap) -> list:
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import wrapper_module
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     rows = []
     for kind in ("prefill", "decode"):
@@ -878,12 +935,14 @@ def flash_rows(cap) -> list:
                 & (kpos[None, None] <= qpos[:, :, None]))[:, None]
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True))[0]
+        splits = wrapper_module("flash_attention").num_splits(b, h, hk, sq,
+                                                             skv)
         rows.append(report_row(
             key, "flash_attention", cap.counts[key], err,
             lambda: kernel(q, k, v, lens, **kw),
             lambda: flash_attention_ref(q, k, v, lens, **kw), bnd, library_ms,
             f"q {b}x{h}x{sq}x{dh} kv {b}x{hk}x{skv}x{dh} {dtype} lengths "
-            f"{lens.min().item()}-{lens.max().item()}"))
+            f"{lens.min().item()}-{lens.max().item()}, {splits} KV splits"))
     return rows
 
 

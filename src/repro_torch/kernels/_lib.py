@@ -39,8 +39,8 @@ _SIGNATURES: dict[str, tuple[list, object]] = {
     "gredo_hop_blocks": ([_I], _I),
     "gredo_hop_count": ([_P] * 10 + [_I] * 9 + [_P], _I),
     "gredo_hop_scatter": ([_P] * 14 + [_I] * 9 + [_P], _I),
-    "gredo_flash_f32": ([_P] * 5 + [_I] * 7 + [_F] + [_L] * 12 + [_P], _I),
-    "gredo_flash_bf16": ([_P] * 5 + [_I] * 7 + [_F] + [_L] * 12 + [_P], _I),
+    "gredo_flash_f32": ([_P] * 6 + [_I] * 9 + [_F] + [_L] * 12 + [_P], _I),
+    "gredo_flash_bf16": ([_P] * 6 + [_I] * 9 + [_F] + [_L] * 12 + [_P], _I),
     "gredo_embedding_bag_f32": ([_P] * 4 + [_I] * 4 + [_P], _I),
 }
 

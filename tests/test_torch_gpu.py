@@ -45,7 +45,8 @@ def kernel(name):
 @pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(32, 32, 32), (128, 128, 128),
-                                   (100, 60, 130), (257, 129, 65)])
+                                   (100, 60, 130), (257, 129, 65),
+                                   (1000, 200, 1000), (129, 17, 257)])
 def test_matmul_kernel_matches_plain(cuda, m, k, n, dtype, transposed):
     x = torch.as_tensor(RNG.standard_normal((m, k)), device=cuda).to(dtype)
     if transposed:
@@ -166,18 +167,57 @@ def test_flash_kernel_matches_plain(cuda, b, h, hk, sq, skv, causal, dh,
         rtol=tol[0], atol=tol[1])
 
 
-def test_flash_kernel_reads_strided_views_and_whole_cache(cuda):
+@pytest.mark.parametrize("b,h,hk,sq,skv,dh,dtype,lens", [
+    # decode split over many blocks; row 1 leaves all but its first split
+    # wholly past its length
+    (2, 12, 2, 1, 4096, 128, torch.bfloat16, [4000, 37]),
+    # prefill whose packed rows (12 / 2 * 77) are not a multiple of 64,
+    # ragged lengths, one below sq (its first rows see no key)
+    (3, 12, 2, 77, 200, 128, torch.bfloat16, [60, 150, 200]),
+    (1, 32, 32, 1, 500, 80, torch.bfloat16, [433]),    # StableLM decode
+    (2, 4, 2, 33, 40, 8, torch.bfloat16, [33, 40]),    # dh 8: zero-padded
+    (2, 4, 2, 32, 32, 16, torch.bfloat16, [32, 32]),   # dh 16
+    (2, 8, 2, 1, 1024, 64, torch.float32, [1000, 5]),  # fp32, split decode
+])
+def test_flash_kernel_tensor_core_and_split_cases(cuda, b, h, hk, sq, skv,
+                                                   dh, dtype, lens):
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        num_splits
+    q = torch.as_tensor(RNG.standard_normal((b, h, sq, dh)),
+                        device=cuda).to(dtype)
+    k = torch.as_tensor(RNG.standard_normal((b, hk, skv, dh)),
+                        device=cuda).to(dtype)
+    v = torch.as_tensor(RNG.standard_normal((b, hk, skv, dh)),
+                        device=cuda).to(dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    if sq == 1:
+        assert num_splits(b, h, hk, sq, skv) > 1
+    before = launch_counts()["flash_attention"]
+    got = kernel("flash_attention")(q, k, v, lens)
+    assert launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = (2e-2, 2e-2) if dtype == torch.bfloat16 else (3e-4, 3e-5)
+    torch.testing.assert_close(got.float(),
+                               flash_attention_ref(q, k, v, lens).float(),
+                               rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_views_and_whole_cache(cuda, dtype):
     """The transformer's inputs: q a transposed (b, s, h, dh) view, k/v the
     whole cache (skv = max_len) with lengths past the written part, one
-    length below sq (its first rows see no key and give 0)."""
+    length below sq (its first rows see no key and give 0); fp32 runs the
+    FFMA kernel, bf16 the tensor-core one."""
     b, s, h, hk, dh, M = 2, 5, 6, 2, 128, 40
-    q = torch.randn((b, s, h, dh), device=cuda).transpose(1, 2)
-    cache = torch.randn((3, b, hk, M, dh), device=cuda)
+    q = torch.randn((b, s, h, dh), device=cuda).to(dtype).transpose(1, 2)
+    cache = torch.randn((3, b, hk, M, dh), device=cuda).to(dtype)
     lens = torch.tensor([17, 3], dtype=torch.int32, device=cuda)
     got = kernel("flash_attention")(q, cache[1], cache[2], lens)
     assert got.stride() == q.stride()
     want = flash_attention_ref(q, cache[1], cache[2], lens)
-    torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-5)
+    tol = (2e-2, 2e-2) if dtype == torch.bfloat16 else (3e-4, 3e-5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
+                               atol=tol[1])
     assert not got[1, :, :2].any()
 
 

@@ -29,7 +29,10 @@ from repro_torch.kernels.cosine_sim.ref import cosine_sim_ref
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.flash_attention import (
+    TARGET_BLOCKS, num_splits, split_size)
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_ref, flash_attention_split_ref)
 from repro_torch.kernels.logreg.ops import logreg_grad
 from repro_torch.kernels.logreg.ref import logreg_grad_ref
 from repro_torch.kernels.matmul.ops import matmul
@@ -223,12 +226,15 @@ def test_traverse_chain_on_edgeless_graph():
     assert [len(c) for c in te] == [0]
 
 
-@pytest.mark.parametrize("b,h,hk,sq,skv,causal", [
+FLASH_SWEEP = [
     (2, 4, 4, 64, 64, True),      # MHA train
     (2, 8, 2, 100, 100, True),    # GQA, ragged seq
     (3, 8, 2, 1, 256, True),      # decode
     (2, 4, 2, 48, 96, False),     # bidirectional, q != kv
-])
+]
+
+
+@pytest.mark.parametrize("b,h,hk,sq,skv,causal", FLASH_SWEEP)
 def test_flash_attention_matches_pallas(b, h, hk, sq, skv, causal):
     q = RNG.standard_normal((b, h, sq, 64)).astype(np.float32)
     k = RNG.standard_normal((b, hk, skv, 64)).astype(np.float32)
@@ -273,6 +279,84 @@ def test_flash_fully_masked_rows_are_zero():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
                                atol=3e-5)
     assert not got[:, :, :5].any() and got[:, :, 5:].abs().sum() > 0
+
+
+def _flash_inputs(b, h, hk, sq, skv, dh=64, lens=None):
+    q = RNG.standard_normal((b, h, sq, dh)).astype(np.float32)
+    k = RNG.standard_normal((b, hk, skv, dh)).astype(np.float32)
+    v = RNG.standard_normal((b, hk, skv, dh)).astype(np.float32)
+    if lens is None:
+        lens = RNG.integers(max(sq, 1), skv + 1, b)
+    return q, k, v, np.asarray(lens, np.int32)
+
+
+def _check_split_ref(q, k, v, lens, causal, splits, bq=32, bk=32):
+    """The split-and-combine plain version against the Pallas kernel in
+    interpret mode and against the unsplit plain version."""
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     jnp.asarray(lens), causal=causal, bq=bq, bk=bk,
+                     interpret=True)
+    got = flash_attention_split_ref(T(q), T(k), T(v), T(lens), causal=causal,
+                                    splits=splits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
+                               atol=3e-5)
+    np.testing.assert_allclose(
+        got.numpy(),
+        flash_attention_ref(T(q), T(k), T(v), T(lens), causal=causal).numpy(),
+        rtol=3e-4, atol=3e-5)
+    return got
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5])
+@pytest.mark.parametrize("b,h,hk,sq,skv,causal", FLASH_SWEEP)
+def test_flash_split_ref_matches_pallas(b, h, hk, sq, skv, causal, splits):
+    _check_split_ref(*_flash_inputs(b, h, hk, sq, skv), causal, splits)
+
+
+def test_flash_split_ref_decode_with_splits_past_length():
+    """Decode over a 512-position cache in 8 splits of 64 keys: row 0 (length
+    70) leaves splits 2-7 wholly past its length (empty partials)."""
+    assert split_size(512, 8) == 64
+    _check_split_ref(*_flash_inputs(2, 4, 2, 1, 512, lens=[70, 300]), True, 8)
+
+
+def test_flash_split_ref_rows_before_length_are_zero():
+    """length 40 < sq 70: the first 30 queries see no key in any split and
+    output exactly 0 (total l = 0)."""
+    got = _check_split_ref(*_flash_inputs(1, 4, 2, 70, 150, dh=16,
+                                          lens=[40]), True, 3)
+    assert not got[:, :, :30].any() and got[:, :, 30:].abs().sum() > 0
+
+
+def test_flash_split_ref_skv_not_a_multiple_of_the_split():
+    """skv 200 in 2 splits of 128 keys: the last split is 72 keys long."""
+    assert split_size(200, 2) == 128
+    _check_split_ref(*_flash_inputs(2, 6, 2, 3, 200, lens=[200, 131]), True,
+                     2)
+
+
+def test_flash_split_choice_is_a_function_of_shapes():
+    """``num_splits`` takes shapes (ints) and no tensor, so the wrapper
+    never reads ``lengths`` on the host. It returns 1 once b * hk * row
+    tiles reaches TARGET_BLOCKS; below that it gives every KV tile its own
+    split or, since splits are whole KV tiles of equal count, at least half
+    of TARGET_BLOCKS blocks; and no split is empty by shape."""
+    assert num_splits(8, 12, 2, 512, 544) == 1       # Qwen2 prefill, 768
+    assert num_splits(66, 12, 2, 1, 4096) == 1       # 66 * 2 * 1 = 132
+    assert num_splits(11, 12, 2, 64, 4096) == 1      # 11 * 2 * 12 = 264
+    assert num_splits(8, 12, 2, 1, 544) == 9         # Qwen2 decode, 16
+    assert split_size(544, 9) == 64
+    assert num_splits(2, 12, 2, 1, 4096) == 32       # 4 blocks, 64 tiles
+    assert split_size(4096, 32) == 128
+    assert num_splits(4, 12, 2, 1, 64) == 1          # a single KV tile
+    for b, h, hk, sq, skv in [(1, 12, 2, 77, 300), (3, 12, 2, 77, 200),
+                              (4, 12, 2, 1, 1024), (2, 8, 2, 1, 1024),
+                              (1, 32, 8, 1, 130), (5, 4, 4, 1, 65)]:
+        s = num_splits(b, h, hk, sq, skv)
+        n = split_size(skv, s)
+        assert (s - 1) * n < skv <= s * n
+        tiles = b * hk * -(-(h // hk * sq) // 64)
+        assert 2 * tiles * s >= TARGET_BLOCKS or s == -(-skv // 64)
 
 
 @pytest.mark.parametrize("nbags,bag,V,D", [(8, 4, 64, 16), (16, 8, 500, 32)])
