@@ -15,8 +15,9 @@ Phases (each raises on failure; the script then exits non-zero):
      shapes (prefill 512 x 512 and decode against a 1024-position cache,
      ragged lengths), its split-KV decode (a 4096-position cache, bf16 and
      fp32), 77-query prefill, dh 80, 8 and 16 in bf16 and the strided
-     whole-cache views in both dtypes, and the embedding bag at 4096 bags
-     x 16 over a 100k x 64 table;
+     whole-cache views in both dtypes, the embedding bag at 4096 bags
+     x 16 over a 100k x 64 table, logreg at 60000 x 4 (the shard
+     regression's width) and a hop whose candidates overflow its capacity;
   3. the GCDIA main path on ``m2bench.generate(sf=10, seed=0)``: a warm-up
      engine, then a fresh ``GredoEngine`` runs G1-G5 and q_opt_skew,
      ``analyze`` of A2, A3 and a_shard_reg, and A1 through
@@ -41,9 +42,10 @@ Phases (each raises on failure; the script then exits non-zero):
      |dense|); and, in fp32 with 2 layers, the batcher's greedy tokens
      against each request served alone (the prefill token must agree
      exactly; the agreement rate of the decoded tokens is printed);
-  5. one JSON line listing the kernels (launches, max error, times: CUDA
-     events over back-to-back calls, the host's issue time and the device
-     time per call from the profiler; bound);
+  5. one JSON line listing the kernels, logreg_grad once at A1's shape and
+     once at a_shard_reg's (launches, max error, times: CUDA events over
+     back-to-back calls, the host's issue time, and the device time and
+     the number of device operations per call from the profiler; bound);
   6. the result line ``{"ok": true, "device": {...}}``.
 
 Nothing of JAX or of the JAX package is imported. Without a CUDA device,
@@ -80,6 +82,8 @@ TOL = {"matmul": (2e-4, 2e-4), "matmul_bf16": (2e-2, 2e-2),
 LOGIT_SCALE_TOL = 2e-2
 SERVE_ARCH = "qwen2-1.5b"
 GCDIA_KERNELS = ("matmul", "cosine_sim", "logreg_grad", "batched_hop")
+# a_shard_reg regresses on four feature columns (m2bench.a_shard_reg)
+SHARD_FEATURES = 4
 DEVICE = "cuda"
 
 
@@ -144,12 +148,13 @@ def time_ms(fn) -> tuple[float, float]:
     return start.elapsed_time(end) / reps, host * 1e3 / n_host
 
 
-def device_ms(fn, calls=10) -> float | None:
+def device_ms(fn, calls=10) -> tuple[float | None, float | None]:
     """Device time per call of ``fn``: the summed durations of the device
     operations it runs, under ``torch.profiler``, over ``calls`` warm
-    calls. Where the host's issue bounds back-to-back calls (``time_ms``'s
-    host time near its event time), this is the kernel's own time. None
-    when the profiler sees no device event."""
+    calls; and the number of those operations (kernels, copies, sets) per
+    call. Where the host's issue bounds back-to-back calls (``time_ms``'s
+    host time near its event time), the time is the kernel's own. None and
+    None when the profiler sees no device event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -160,9 +165,11 @@ def device_ms(fn, calls=10) -> float | None:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                if e.device_type == DeviceType.CUDA)
-    return total / calls / 1e3 if total else None
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if not spans:
+        return None, None
+    return sum(spans) / calls / 1e3, len(spans) / calls
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -251,7 +258,8 @@ def phase_sweep():
         assert_close(f"cosine {m}x{n}x{d}", wrapper("cosine_sim")(x, y),
                      cosine_sim_ref(x, y), *TOL["cosine_sim"])
         n_checks += 1
-    for n, d in [(100, 16), (512, 64), (65, 7)]:
+    # the reference sweep, plus the shard regression's d = 4 at n >= 50000
+    for n, d in [(100, 16), (512, 64), (65, 7), (60000, 4)]:
         x = t(rng.standard_normal((n, d)))
         y = t(rng.integers(0, 2, n))
         w = t(rng.standard_normal(d) * 0.3)
@@ -266,9 +274,11 @@ def phase_sweep():
         return (t(rp, torch.int32), t(ci, torch.int32), t(ei, torch.int32),
                 t(mem, torch.bool), t(ep, torch.bool), t(ca, torch.bool))
 
-    # fused: the reference sweep, plus a multi-block capacity
+    # fused: the reference sweep, plus a multi-block capacity and a
+    # frontier whose candidates overflow the capacity
     for seed, capacity, n, c0 in [(0, 128, 12, 6), (1, 128, 12, 6),
-                                  (2, 256, 12, 6), (3, 2048, 400, 300)]:
+                                  (2, 256, 12, 6), (3, 2048, 400, 300),
+                                  (4, 128, 12, 60)]:
         rp, ci, ei, mem, ep, ca = hop_tables(seed, n)
         r = np.random.default_rng(seed + 100)
         frontier = np.zeros(capacity, np.int32)
@@ -278,9 +288,12 @@ def phase_sweep():
         args = (rp, ci, ei, t(frontier, torch.int32), t(fmask, torch.bool),
                 mem, ep, ca)
         kw = dict(capacity=capacity, chunk=8)
-        for a, b in zip(fused_hop(*args, **kw),
-                        tref.fused_hop_ref(*args, **kw)):
+        got = fused_hop(*args, **kw)
+        for a, b in zip(got, tref.fused_hop_ref(*args, **kw)):
             assert_equal(f"fused_hop seed={seed} cap={capacity}", a, b)
+        if bool(got[4]) != (c0 == 60):
+            raise AssertionError(f"fused_hop seed={seed}: overflowed "
+                                 f"{bool(got[4])}")
         n_checks += 1
     # batched
     for seed, capacity, n, B in [(7, 128, 12, 5), (8, 1024, 300, 4)]:
@@ -400,11 +413,14 @@ class Capture:
         self.counts: dict = {}
         self._restore: list = []
 
-    def wrap(self, name, work, kind=None, clone=False):
+    def wrap(self, name, work, kind=None, clone=False, entry=None):
+        """Record the calls of kernel ``name``'s wrapper function ``entry``
+        (the function named as the kernel by default)."""
         import torch
         from repro_torch.kernels import wrapper_module
         mod = wrapper_module(name)
-        orig = getattr(mod, name)
+        entry = entry or name
+        orig = getattr(mod, entry)
 
         def recorder(*args, **kw):
             w = work(*args, **kw)
@@ -418,8 +434,8 @@ class Capture:
             out = orig(*args, **kw)
             self.counts[key] = self.counts.get(key, 0) + mod.launches - before
             return out
-        setattr(mod, name, recorder)
-        self._restore.append((mod, name, orig))
+        setattr(mod, entry, recorder)
+        self._restore.append((mod, entry, orig))
 
     def close(self):
         for mod, fn_name, orig in self._restore:
@@ -481,9 +497,12 @@ def phase_main():
     cap = Capture()
     cap.wrap("matmul", lambda x, y: x.shape[0] * x.shape[1] * y.shape[1])
     cap.wrap("cosine_sim", lambda x, y: x.shape[0] * y.shape[0] * x.shape[1])
-    cap.wrap("logreg_grad", lambda x, y, w: x.numel())
-    cap.wrap("batched_hop",
-             lambda *a, capacity, chunk: a[3].shape[0] * capacity)
+    cap.wrap("logreg_grad", lambda x, y, w: x.numel(), kind=logreg_kind)
+    # the chain runner takes the single-query entry (frontier (C,))
+    for entry in ("batched_hop", "fused_hop"):
+        cap.wrap("batched_hop",
+                 lambda *a, capacity, chunk: a[3].numel() // a[3].shape[-1]
+                 * capacity, entry=entry)
     eng = GredoEngine(db)
     times: dict = {}
     torch.cuda.reset_peak_memory_stats()
@@ -552,7 +571,7 @@ def phase_main():
     say(f"phase 3 peak device memory: {peak_gib:.3f} GiB")
     del res, plain
     torch.cuda.empty_cache()
-    return launches, cap.calls
+    return launches, cap
 
 
 # ---------------------------------------------------------------------------
@@ -560,20 +579,30 @@ def phase_main():
 # ---------------------------------------------------------------------------
 
 
-def kernel_report(launches: dict, calls: dict) -> list:
-    """Rows of the four GCDIA kernels, at the main path's captured inputs."""
+def logreg_kind(x, y, w) -> str:
+    """A1's regression, or a_shard_reg's over its four feature columns."""
+    return "shard" if x.shape[1] == SHARD_FEATURES else "A1"
+
+
+def kernel_report(launches: dict, cap) -> list:
+    """Rows of the four GCDIA kernels (logreg_grad at its two shapes), at
+    the main path's captured inputs."""
     import torch
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import wrapper_module
     from repro_torch.kernels.cosine_sim.ref import cosine_sim_ref
     from repro_torch.kernels.logreg.ref import logreg_grad_ref
     from repro_torch.kernels.matmul.ref import matmul_ref
-    from repro_torch.kernels.traversal.ref import batched_hop_ref
+    from repro_torch.kernels.traversal.ref import (batched_hop_ref,
+                                                   fused_hop_ref)
 
     rows = []
-    for name in GCDIA_KERNELS:
-        if name not in calls:
-            raise AssertionError(f"{name}: no main-path call was captured")
-        _, args, kw = calls[name]
+    for key in ("matmul", "cosine_sim", "logreg_grad/A1",
+                "logreg_grad/shard", "batched_hop"):
+        if key not in cap.calls:
+            raise AssertionError(f"{key}: no main-path call was captured")
+        _, args, kw = cap.calls[key]
+        name = key.split("/")[0]
+        n_launch = cap.counts[key] if "/" in key else launches[name]
         kernel = wrapper(name)
         library_ms = None
         if name == "matmul":
@@ -606,30 +635,38 @@ def kernel_report(launches: dict, calls: dict) -> list:
             b = bound_ms((n * d + n + 2 * d + 1) * 4, 4.0 * n * d, "float32")
             g1, l1 = kernel(x, y, w)
             g2, l2 = logreg_grad_ref(x, y, w)
-            err = max(assert_close("logreg grad (main path)", g1, g2,
+            err = max(assert_close(f"{key} grad (main path)", g1, g2,
                                    *TOL["logreg_grad"]),
-                      assert_close("logreg loss (main path)", l1, l2,
+                      assert_close(f"{key} loss (main path)", l1, l2,
                                    *TOL["logreg_grad"]))
             plain = lambda: logreg_grad_ref(x, y, w)               # noqa: E731
             shape = f"{n}x{d}"
         else:
             rp, ci, ei, fr, fm, mem, ep, ca = args
-            capacity, B, C = kw["capacity"], fr.shape[0], fr.shape[1]
-            frl = fr.long()
-            deg = torch.where(fm, rp[frl + 1] - rp[frl], 0)
+            single = fr.dim() == 1          # the chain runner's fused_hop
+            if single:
+                kernel = getattr(wrapper_module(name), "fused_hop")
+            capacity = kw["capacity"]
+            B, C = (1, fr.shape[0]) if single else fr.shape
+            frl = fr.reshape(B, C).long()
+            fm2 = fm.reshape(B, C)
+            deg = torch.where(fm2, rp[frl + 1] - rp[frl], 0)
             n_cand = int(torch.clamp(deg.sum(1), max=capacity).sum())
-            n_front = int(fm.sum())
-            # outputs + frontier/mask + row_ptr pairs + per-candidate gathers
-            nbytes = (12 * capacity * B + 4 * B + 5 * C * B + 8 * n_front
+            n_front = int(fm2.sum())
+            # outputs (slots, count, flag) + masks + live frontier entries
+            # and their row_ptr pairs + per-candidate gathers
+            nbytes = (12 * capacity * B + 5 * B + C * B + 12 * n_front
                       + 11 * n_cand)
             b = (nbytes / PEAK_BYTES_S * 1e3, "bytes")
-            got, want = kernel(*args, **kw), batched_hop_ref(*args, **kw)
+            ref = fused_hop_ref if single else batched_hop_ref
+            got, want = kernel(*args, **kw), ref(*args, **kw)
             err = max(assert_equal(f"batched_hop (main path) out{i}", a, w_)
                       for i, (a, w_) in enumerate(zip(got, want)))
-            plain = lambda: batched_hop_ref(*args, **kw)           # noqa: E731
-            shape = (f"B={B} C={C} capacity={capacity} frontier={n_front} "
+            plain = lambda: ref(*args, **kw)                       # noqa: E731
+            shape = (f"{'fused_hop, ' if single else ''}B={B} C={C} "
+                     f"capacity={capacity} frontier={n_front} "
                      f"candidates={n_cand}")
-        rows.append(report_row(name, name, launches[name], err,
+        rows.append(report_row(key, name, n_launch, err,
                                lambda: kernel(*args, **kw), plain, b,
                                library_ms, shape))
     return rows
@@ -640,11 +677,13 @@ def report_row(row_name, name, launches, err, run, plain, b, library_ms,
     """Time the kernel call ``run`` and its plain version; one JSON row."""
     from repro_torch.kernels import KERNELS
     ms, host_ms = time_ms(run)
-    dev_ms = device_ms(run)
+    dev_ms, dev_ops = device_ms(run)
     plain_ms = time_ms(plain)[0]
     say(f"{row_name} at {shape}: kernel {ms:.4f} ms (host issue "
         f"{host_ms:.4f} ms, device "
-        f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} in "
+        f"{'not measured' if dev_ops is None else f'{dev_ops:g}'} device "
+        "operations per call), "
         f"plain {plain_ms:.4f} ms, "
         f"bound {b[0]:.4f} ms ({b[1]}), library "
         f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
@@ -654,7 +693,7 @@ def report_row(row_name, name, launches, err, run, plain, b, library_ms,
             "replaces": KERNELS[name].replaces,
             "launches": launches,
             "max_abs_err": err, "ms": ms, "host_ms": host_ms,
-            "device_ms": dev_ms,
+            "device_ms": dev_ms, "device_ops": dev_ops,
             "plain_ms": plain_ms,
             "bound_ms": b[0], "bound_by": b[1],
             "library_ms": library_ms, "shape": shape}
@@ -991,8 +1030,8 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device()
     phase_sweep()
-    launches, calls = phase_main()
-    rows = kernel_report(launches, calls)
+    launches, cap = phase_main()
+    rows = kernel_report(launches, cap)
     rows += flash_rows(phase_serve()) + [embedding_bag_row()]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))

@@ -14,6 +14,7 @@ Each C entry point launches on the stream it is given and returns
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,11 +35,9 @@ _SIGNATURES: dict[str, tuple[list, object]] = {
     "gredo_matmul_f32": ([_P, _P, _P] + [_I] * 7 + [_P], _I),
     "gredo_matmul_bf16": ([_P, _P, _P] + [_I] * 7 + [_P], _I),
     "gredo_cosine_f32": ([_P] * 5 + [_I] * 3 + [_F, _P], _I),
-    "gredo_logreg_blocks": ([_I], _I),
-    "gredo_logreg_f32": ([_P] * 5 + [_I] * 2 + [_P], _I),
-    "gredo_hop_blocks": ([_I], _I),
-    "gredo_hop_count": ([_P] * 10 + [_I] * 9 + [_P], _I),
-    "gredo_hop_scatter": ([_P] * 14 + [_I] * 9 + [_P], _I),
+    "gredo_logreg_f32": ([_P] * 6 + [_I] * 5 + [_P], _I),
+    "gredo_hop_workspace": ([_I] * 4, _L),
+    "gredo_hop": ([_P] * 16 + [_I] * 9 + [_P], _I),
     "gredo_flash_f32": ([_P] * 6 + [_I] * 9 + [_F] + [_L] * 12 + [_P], _I),
     "gredo_flash_bf16": ([_P] * 6 + [_I] * 9 + [_F] + [_L] * 12 + [_P], _I),
     "gredo_embedding_bag_f32": ([_P] * 4 + [_I] * 4 + [_P], _I),
@@ -46,6 +45,7 @@ _SIGNATURES: dict[str, tuple[list, object]] = {
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None     # wall time of the build (or reuse)
+_workspaces: dict = {}     # (kernel, device index, stream) -> tensors
 
 
 def _nvcc() -> str:
@@ -129,10 +129,39 @@ def query(name: str, *args) -> int:
     return getattr(lib(), name)(*args)
 
 
-def stream_of(t) -> int:
-    """The raw handle of PyTorch's current stream on ``t``'s device."""
+def on_device(dev):
+    """``torch.cuda.device(dev)``, or nothing when ``dev`` is current
+    already (the usual case: entering the context costs host time)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def stream_of(t) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s device (the
+    call ``torch.cuda.current_stream(dev).cuda_stream`` makes, without
+    building a Stream object)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def workspace(kernel: str, dev, stream: int, specs) -> tuple:
+    """The scratch tensors of ``kernel`` on one stream, cached: ``specs``
+    holds (numel, dtype, zeroed) per tensor. When one is too small, all are
+    allocated anew, none smaller than before, and those marked ``zeroed``
+    filled with 0 (a kernel that leaves such a tensor at 0 needs that only
+    once)."""
+    import torch
+    key = (kernel, dev.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or any(t.numel() < n for t, (n, _, _) in zip(ws, specs)):
+        old = [t.numel() for t in ws] if ws else [0] * len(specs)
+        ws = tuple((torch.zeros if zeroed else torch.empty)(
+            max(n, o), dtype=dtype, device=dev)
+            for (n, dtype, zeroed), o in zip(specs, old))
+        _workspaces[key] = ws
+    return ws
 
 
 def require_cuda(name: str, *tensors) -> None:

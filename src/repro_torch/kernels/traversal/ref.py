@@ -26,25 +26,31 @@ import torch
 _I32 = torch.int32
 
 
-def batched_hop_ref(row_ptr: torch.Tensor, col_idx: torch.Tensor,
-                    edge_id: torch.Tensor, frontiers: torch.Tensor,
-                    fmasks: torch.Tensor, member: torch.Tensor,
-                    edge_pred: torch.Tensor, chunk_alive: torch.Tensor, *,
-                    capacity: int, chunk: int):
-    """B independent queries share the CSR and predicate tables and advance
-    one hop. frontiers/fmasks: (B, C) padded nids + validity; member: (n,)
-    bool over nids; edge_pred: (m,) bool over edge tids; chunk_alive:
-    (ceil(m/chunk),) bool. Returns (src_slot, dst, eid) as (B, capacity)
-    int32 with the first ``count[q]`` slots of row q holding the compacted
-    survivors, count (B,) int32 and overflowed (B,) bool. ``src_slot``
-    indexes the INPUT frontier so callers re-join path prefixes."""
-    B, C = frontiers.shape
+def hop_degree_scan_ref(row_ptr: torch.Tensor, frontiers: torch.Tensor,
+                        fmasks: torch.Tensor, *, capacity: int):
+    """The hop's first phase: each live entry's degree, their exclusive
+    prefix sum ``out_off`` (B, C) int32 (where each entry's candidates
+    start), the candidate ``total`` (B,) int32 and ``overflowed`` (B,) bool
+    (total > capacity)."""
     fr = frontiers.to(torch.int64)
     deg = torch.where(fmasks, (row_ptr[fr + 1] - row_ptr[fr]).to(_I32), 0)
     out_off = torch.cumsum(deg, 1, dtype=_I32) - deg    # exclusive prefix sum
     total = torch.sum(deg, 1, dtype=_I32)
-    overflowed = total > capacity
+    return out_off, total, total > capacity
 
+
+def hop_expand_ref(row_ptr: torch.Tensor, col_idx: torch.Tensor,
+                   edge_id: torch.Tensor, frontiers: torch.Tensor,
+                   out_off: torch.Tensor, total: torch.Tensor,
+                   member: torch.Tensor, edge_pred: torch.Tensor,
+                   chunk_alive: torch.Tensor, *, capacity: int, chunk: int):
+    """The hop's second phase: slot s < min(total, capacity) of query q is
+    candidate ``s - out_off[q, e]`` of the entry e owning it (the last
+    offset <= s); the CSR gather, the three filters, and the survivors
+    compacted in slot order. Returns (src_slot, dst, eid) as
+    (B, capacity) int32 padded with 0 / -1 / -1, and count (B,) int32."""
+    B, C = frontiers.shape
+    fr = frontiers.to(torch.int64)
     slots = torch.arange(capacity, dtype=_I32, device=fr.device)
     slots = slots.expand(B, capacity).contiguous()
     src_slot = torch.clamp(
@@ -69,7 +75,29 @@ def batched_hop_ref(row_ptr: torch.Tensor, col_idx: torch.Tensor,
     src_c = torch.where(live, torch.gather(src_slot, 1, order).to(_I32), 0)
     dst_c = torch.where(live, torch.gather(dst, 1, order), -1)
     eid_c = torch.where(live, torch.gather(eid, 1, order), -1)
-    return src_c, dst_c, eid_c, count, overflowed
+    return src_c, dst_c, eid_c, count
+
+
+def batched_hop_ref(row_ptr: torch.Tensor, col_idx: torch.Tensor,
+                    edge_id: torch.Tensor, frontiers: torch.Tensor,
+                    fmasks: torch.Tensor, member: torch.Tensor,
+                    edge_pred: torch.Tensor, chunk_alive: torch.Tensor, *,
+                    capacity: int, chunk: int):
+    """B independent queries share the CSR and predicate tables and advance
+    one hop. frontiers/fmasks: (B, C) padded nids + validity; member: (n,)
+    bool over nids; edge_pred: (m,) bool over edge tids; chunk_alive:
+    (ceil(m/chunk),) bool. Returns (src_slot, dst, eid) as (B, capacity)
+    int32 with the first ``count[q]`` slots of row q holding the compacted
+    survivors, count (B,) int32 and overflowed (B,) bool. ``src_slot``
+    indexes the INPUT frontier so callers re-join path prefixes. The two
+    phases are those of the CUDA kernels: :func:`hop_degree_scan_ref`, then
+    :func:`hop_expand_ref`."""
+    out_off, total, overflowed = hop_degree_scan_ref(
+        row_ptr, frontiers, fmasks, capacity=capacity)
+    src, dst, eid, count = hop_expand_ref(
+        row_ptr, col_idx, edge_id, frontiers, out_off, total, member,
+        edge_pred, chunk_alive, capacity=capacity, chunk=chunk)
+    return src, dst, eid, count, overflowed
 
 
 def fused_hop_ref(row_ptr, col_idx, edge_id, frontier, fmask, member,

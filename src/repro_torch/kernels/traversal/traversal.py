@@ -1,12 +1,17 @@
 """Wrapper of the fused traversal-hop CUDA kernels (``csrc/traversal.cu``)
 — the device-resident GCDI hot path.
 
-One call advances B padded frontiers one hop. The prelude (degrees, their
-exclusive prefix sum, the candidate total and the overflow flag) and the
-exclusive scan of the per-block survivor counts between the two kernels
-are O(C) and O(capacity / 256) tensor ops; the kernels do the
-O(capacity) candidate work (see the source for the design)."""
+One call advances B padded frontiers one hop with one ``ctypes`` call that
+launches two kernels (the degree scan and the expand/compact pass; see the
+source for the design) and no torch op besides allocating the outputs. The
+look-back status words, the tile counters, the totals and ``out_off`` live
+in a workspace cached per (device, stream) (``_lib.workspace``), grown when
+a larger shape arrives. The kernels leave the status words and counters at
+0 for the next call, so nothing is cleared on the host and a call can be
+captured in a CUDA graph and replayed."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -14,33 +19,77 @@ from .. import _lib
 
 launches = 0          # hops launched through this wrapper
 
+
+@functools.lru_cache(maxsize=256)
+def _specs(B: int, C: int, capacity: int) -> tuple:
+    """The workspace of a (B, C, capacity) hop (``gredo_hop_workspace``'s
+    parts): the scan's and the expand kernel's look-back words, each zeroed
+    once, and the int32 data."""
+    return tuple((_lib.query("gredo_hop_workspace", part, B, C, capacity),
+                  dtype, part < 2)
+                 for part, dtype in enumerate((torch.int64, torch.int64,
+                                               torch.int32)))
+
+
 _I32 = torch.int32
 
 
-def _check(row_ptr, col_idx, edge_id, frontiers, fmasks, member, edge_pred,
-           chunk_alive):
-    _lib.require_cuda("batched_hop", row_ptr, col_idx, edge_id, frontiers,
-                      fmasks, member, edge_pred, chunk_alive)
-    for name, t, dtype in (("row_ptr", row_ptr, _I32),
-                           ("col_idx", col_idx, _I32),
-                           ("edge_id", edge_id, _I32),
-                           ("frontiers", frontiers, _I32),
-                           ("fmasks", fmasks, torch.bool),
-                           ("member", member, torch.bool),
-                           ("edge_pred", edge_pred, torch.bool),
-                           ("chunk_alive", chunk_alive, torch.bool)):
-        if t.dtype != dtype:
-            raise TypeError(f"batched_hop: {name} must be {dtype}, "
-                            f"got {t.dtype}")
+_DTYPES = (_I32, _I32, _I32, _I32, torch.bool, torch.bool, torch.bool,
+           torch.bool)
+_NAMES = ("row_ptr", "col_idx", "edge_id", "frontiers", "fmasks", "member",
+          "edge_pred", "chunk_alive")
+
+
+def _check(capacity, chunk, dims, *tensors):
+    """The wrapper's input checks; ``tensors`` in ``_NAMES`` order."""
+    _lib.require_cuda("batched_hop", *tensors)
+    if tuple(t.dtype for t in tensors) != _DTYPES:
+        name, t, dtype = next((n, t, d) for n, t, d in
+                              zip(_NAMES, tensors, _DTYPES) if t.dtype != d)
+        raise TypeError(f"batched_hop: {name} must be {dtype}, got {t.dtype}")
+    for name, t in zip(_NAMES, tensors):
         if not t.is_contiguous():
             raise ValueError(f"batched_hop: {name} must be contiguous")
         if t.numel() == 0:
             raise ValueError(f"batched_hop: {name} is empty")
-    if frontiers.dim() != 2 or fmasks.shape != frontiers.shape:
+    row_ptr, col_idx, edge_id, frontiers, fmasks = tensors[:5]
+    if frontiers.dim() != dims or fmasks.shape != frontiers.shape:
         raise ValueError(f"batched_hop: frontiers {tuple(frontiers.shape)} "
-                         f"and fmasks {tuple(fmasks.shape)} must be (B, C)")
+                         f"and fmasks {tuple(fmasks.shape)} must be "
+                         f"{'(B, C)' if dims == 2 else '(C,)'}")
     if edge_id.shape != col_idx.shape:
         raise ValueError("batched_hop: col_idx and edge_id differ in length")
+    if capacity <= 0 or chunk <= 0:
+        raise ValueError(f"batched_hop: capacity {capacity}, chunk {chunk}")
+
+
+def _hop(row_ptr, col_idx, edge_id, frontiers, fmasks, member, edge_pred,
+         chunk_alive, capacity, chunk, B, C, rows):
+    """One launch window of ``gredo_hop``; outputs of shape ``rows +
+    (capacity,)`` and ``rows`` (``(B,)`` batched, ``()`` for one query)."""
+    global launches
+    dev = frontiers.device
+    # one allocation for the three slot outputs (each its own view)
+    src, dst, eid = torch.empty((3,) + rows + (capacity,), dtype=_I32,
+                                device=dev).unbind(0)
+    count = torch.empty(rows, dtype=_I32, device=dev)
+    overflowed = torch.empty(rows, dtype=torch.bool, device=dev)
+    with _lib.on_device(dev):
+        stream = _lib.stream_of(frontiers)
+        scan_words, expand_words, data = _lib.workspace(
+            "batched_hop", dev, stream, _specs(B, C, capacity))
+        _lib.launch("gredo_hop", row_ptr.data_ptr(), col_idx.data_ptr(),
+                    edge_id.data_ptr(), frontiers.data_ptr(),
+                    fmasks.data_ptr(), member.data_ptr(),
+                    edge_pred.data_ptr(), chunk_alive.data_ptr(),
+                    scan_words.data_ptr(), expand_words.data_ptr(),
+                    data.data_ptr(), src.data_ptr(), dst.data_ptr(),
+                    eid.data_ptr(), count.data_ptr(), overflowed.data_ptr(),
+                    B, C, capacity, chunk, row_ptr.numel(), col_idx.numel(),
+                    member.numel(), edge_pred.numel(), chunk_alive.numel(),
+                    stream)
+    launches += 1
+    return src, dst, eid, count, overflowed
 
 
 def batched_hop(row_ptr: torch.Tensor, col_idx: torch.Tensor,
@@ -51,49 +100,19 @@ def batched_hop(row_ptr: torch.Tensor, col_idx: torch.Tensor,
     """B queries, one hop on the card. Same contract as
     ``ref.batched_hop_ref``: (src_slot, dst, eid) as (B, capacity) int32,
     count (B,) int32, overflowed (B,) bool."""
-    global launches
-    _check(row_ptr, col_idx, edge_id, frontiers, fmasks, member, edge_pred,
-           chunk_alive)
-    if capacity <= 0 or chunk <= 0:
-        raise ValueError(f"batched_hop: capacity {capacity}, chunk {chunk}")
+    _check(capacity, chunk, 2, row_ptr, col_idx, edge_id, frontiers, fmasks,
+           member, edge_pred, chunk_alive)
     B, C = frontiers.shape
-    dev = frontiers.device
-    fr = frontiers.long()
-    deg = torch.where(fmasks, row_ptr[fr + 1] - row_ptr[fr], 0)
-    out_off = (torch.cumsum(deg, 1, dtype=_I32) - deg).contiguous()
-    total = torch.sum(deg, 1, dtype=_I32)
-    overflowed = total > capacity
-
-    nblk = _lib.query("gredo_hop_blocks", capacity)
-    block_counts = torch.empty((B, nblk), dtype=_I32, device=dev)
-    tables = (out_off.data_ptr(), frontiers.data_ptr(), total.data_ptr(),
-              row_ptr.data_ptr(), col_idx.data_ptr(), edge_id.data_ptr(),
-              member.data_ptr(), edge_pred.data_ptr(),
-              chunk_alive.data_ptr())
-    sizes = (B, C, capacity, chunk, row_ptr.numel(), col_idx.numel(),
-             member.numel(), edge_pred.numel(), chunk_alive.numel())
-    src = torch.empty((B, capacity), dtype=_I32, device=dev)
-    dst = torch.empty_like(src)
-    eid = torch.empty_like(src)
-    with torch.cuda.device(dev):
-        stream = _lib.stream_of(frontiers)
-        _lib.launch("gredo_hop_count", *tables, block_counts.data_ptr(),
-                    *sizes, stream)
-        block_off = (torch.cumsum(block_counts, 1, dtype=_I32)
-                     - block_counts).contiguous()
-        count = torch.sum(block_counts, 1, dtype=_I32)
-        _lib.launch("gredo_hop_scatter", *tables, block_off.data_ptr(),
-                    count.data_ptr(), src.data_ptr(), dst.data_ptr(),
-                    eid.data_ptr(), *sizes, stream)
-    launches += 1
-    return src, dst, eid, count, overflowed
+    return _hop(row_ptr, col_idx, edge_id, frontiers, fmasks, member,
+                edge_pred, chunk_alive, capacity, chunk, B, C, (B,))
 
 
 def fused_hop(row_ptr, col_idx, edge_id, frontier, fmask, member, edge_pred,
               chunk_alive, *, capacity: int, chunk: int):
-    """Single-query hop (the B=1 row of the batched kernel); same contract
-    as ``ref.fused_hop_ref``."""
-    src, dst, eid, cnt, ovf = batched_hop(
-        row_ptr, col_idx, edge_id, frontier[None, :], fmask[None, :],
-        member, edge_pred, chunk_alive, capacity=capacity, chunk=chunk)
-    return src[0], dst[0], eid[0], cnt[0], ovf[0]
+    """Single-query hop (the B=1 case of the batched kernel, without the
+    views of a batch axis); same contract as ``ref.fused_hop_ref``."""
+    _check(capacity, chunk, 1, row_ptr, col_idx, edge_id, frontier, fmask,
+           member, edge_pred, chunk_alive)
+    return _hop(row_ptr, col_idx, edge_id, frontier, fmask, member,
+                edge_pred, chunk_alive, capacity, chunk, 1, frontier.shape[0],
+                ())

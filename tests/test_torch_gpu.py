@@ -11,6 +11,7 @@ alone). Tolerances: fp32 matmul 2e-4, bf16 2e-2; cosine, logreg, flash
 attention and embedding bag rtol 3e-4 / atol 3e-5 (different summation
 order), bf16 flash attention 2e-2; traversal exact."""
 import dataclasses
+import zlib
 
 import numpy as np
 import pytest
@@ -71,9 +72,36 @@ def test_cosine_kernel_matches_plain(cuda, m, n, d):
                                cosine_sim_ref(x, y), rtol=3e-4, atol=3e-5)
 
 
-@pytest.mark.parametrize("n,d", [(100, 16), (512, 64), (65, 7)])
+@pytest.mark.parametrize("n,d", [(100, 16), (512, 64), (65, 7),
+                                 # one row; A1's shape; the shard
+                                 # regression's d = 4; odd d (row starts
+                                 # not 16-byte aligned); a d that shrinks
+                                 # the row tile; a row wider than the
+                                 # shared-memory budget (read in place)
+                                 (1, 16), (15910, 200), (60000, 4),
+                                 (1001, 33), (256, 4096), (3, 60000)])
 def test_logreg_kernel_matches_plain(cuda, n, d):
     x = torch.as_tensor(RNG.standard_normal((n, d)), device=cuda).float()
+    y = torch.as_tensor(RNG.integers(0, 2, n), device=cuda).float()
+    w = torch.as_tensor(RNG.standard_normal(d) * 0.3, device=cuda).float()
+    g1, l1 = kernel("logreg_grad")(x, y, w)
+    g2, l2 = logreg_grad_ref(x, y, w)
+    torch.testing.assert_close(g1, g2, rtol=3e-4, atol=3e-5)
+    torch.testing.assert_close(l1, l2, rtol=3e-4, atol=3e-5)
+    for _ in range(2):      # one launch per call, the same bits every call
+        before = launch_counts()["logreg_grad"]
+        g3, l3 = kernel("logreg_grad")(x, y, w)
+        assert launch_counts()["logreg_grad"] == before + 1
+        assert torch.equal(g3, g1) and torch.equal(l3, l1)
+
+
+def test_logreg_kernel_reads_an_unaligned_view(cuda):
+    """A contiguous view starting one float into its storage: the tile
+    copies cannot take the 16-byte path."""
+    n, d = 777, 12
+    base = torch.as_tensor(RNG.standard_normal(n * d + 1),
+                           device=cuda).float()
+    x = base[1:].view(n, d)
     y = torch.as_tensor(RNG.integers(0, 2, n), device=cuda).float()
     w = torch.as_tensor(RNG.standard_normal(d) * 0.3, device=cuda).float()
     g1, l1 = kernel("logreg_grad")(x, y, w)
@@ -120,21 +148,133 @@ def test_fused_hop_kernel_matches_plain(cuda, seed, capacity, n, c0):
     _assert_hops_equal(fused_hop(*args, **kw), tref.fused_hop_ref(*args, **kw))
 
 
-@pytest.mark.parametrize("seed,capacity,n,B", [(7, 128, 12, 5),
-                                               (8, 1024, 300, 4)])
-def test_batched_hop_kernel_matches_plain(cuda, seed, capacity, n, B):
-    rp, ci, ei, mem, ep, ca = _hop_tables(seed, n, cuda)
+# random short frontiers: name -> (seed, capacity, vertices, B)
+RANDOM_HOPS = {"random_b5": (7, 128, 12, 5), "random_b4": (8, 1024, 300, 4)}
+
+
+def _csr_from_degrees(deg, seed, dev, chunk=8):
+    """A random CSR with the given out-degrees, and its predicate tables."""
     rng = np.random.default_rng(seed)
-    fr = torch.zeros((B, capacity), dtype=torch.int32, device=cuda)
-    fm = torch.zeros((B, capacity), dtype=torch.bool, device=cuda)
-    for q in range(B):
-        c0 = int(rng.integers(1, min(capacity // 8, 8 * n) + 1))
-        fr[q, :c0] = torch.as_tensor(rng.integers(0, n, c0), device=cuda)
-        fm[q, :c0] = True
+    n = len(deg)
+    row_ptr = np.zeros(n + 1, np.int32)
+    row_ptr[1:] = np.cumsum(deg)
+    m = int(row_ptr[-1])
+    edge_pred = rng.random(max(m, 1)) < 0.6
+    alive = np.array([edge_pred[c * chunk:(c + 1) * chunk].any()
+                      for c in range(max(-(-max(m, 1) // chunk), 1))])
+    arrays = (row_ptr, rng.integers(0, n, max(m, 1)).astype(np.int32),
+              rng.permutation(max(m, 1)).astype(np.int32),
+              rng.random(n) < 0.7, edge_pred, alive)
+    return tuple(torch.as_tensor(a, device=dev) for a in arrays)
+
+
+def _hop_case(name, dev):
+    """(tables, frontiers, fmasks, capacity) of one edge case of the hop."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    if name in RANDOM_HOPS:              # short frontiers of random lengths
+        seed, capacity, n, B = RANDOM_HOPS[name]
+        tables = _hop_tables(seed, n, dev)
+        rng = np.random.default_rng(seed)
+        fr = np.zeros((B, capacity), np.int64)
+        fm = np.zeros((B, capacity), bool)
+        for q in range(B):
+            c0 = int(rng.integers(1, min(capacity // 8, 8 * n) + 1))
+            fr[q, :c0] = rng.integers(0, n, c0)
+            fm[q, :c0] = True
+    elif name in ("empty", "total_is_capacity", "overflow"):
+        # degree 32 everywhere: 0, 16 and 20 live entries give totals 0,
+        # capacity and past it
+        tables = _csr_from_degrees(np.full(40, 32), 1, dev)
+        B, capacity = 2, 512
+        live = {"empty": 0, "total_is_capacity": 16, "overflow": 20}[name]
+        fr = rng.integers(0, 40, (B, capacity))
+        fm = np.zeros((B, capacity), bool)
+        fm[:, :live] = True
+    elif name == "big_vertex":           # one row spans > 8 slot tiles
+        deg = rng.integers(0, 9, 50)
+        deg[7] = 5000
+        tables = _csr_from_degrees(deg, 2, dev)
+        B, capacity = 1, 8192
+        fr = rng.integers(0, 50, (B, capacity))
+        fr[0, :3] = [3, 7, 9]
+        fm = np.zeros((B, capacity), bool)
+        fm[0, :3] = True
+    elif name == "ragged_b3":            # totals far apart
+        tables = _csr_from_degrees(rng.integers(0, 40, 500), 3, dev)
+        B, capacity = 3, 4096
+        fr = rng.integers(0, 500, (B, capacity))
+        fm = np.zeros((B, capacity), bool)
+        fm[1, :5] = True
+        fm[2, :150] = True
+    elif name == "holes":                # mask not a prefix, 4 scan tiles
+        tables = _csr_from_degrees(rng.integers(0, 6, 300), 4, dev)
+        B, capacity = 2, 8192
+        fr = rng.integers(0, 300, (B, capacity))
+        fm = rng.random((B, capacity)) < 0.3
+    elif name == "sparse_holes":         # a slot tile spans > 2048 entries
+        deg = np.zeros(20, np.int64)
+        deg[[2, 5]] = 100
+        tables = _csr_from_degrees(deg, 5, dev)
+        B, capacity = 1, 16384
+        fr = np.full((B, capacity), 2)
+        fm = np.zeros((B, capacity), bool)
+        fm[0, [0, 10000]] = True
+        fr[0, 10000] = 5
+    else:                                # the main path's G5 shape
+        tables = _csr_from_degrees(rng.integers(500, 1500, 2000), 6, dev)
+        B, capacity = 1, 524288
+        fr = rng.integers(0, 2000, (B, capacity))
+        fm = np.zeros((B, capacity), bool)
+        fm[0, :200] = True
+    return (tables, torch.as_tensor(fr, dtype=torch.int32, device=dev),
+            torch.as_tensor(fm, device=dev), capacity)
+
+
+def _hop_matches_plain(name, dev):
+    (rp, ci, ei, mem, ep, ca), fr, fm, capacity = _hop_case(name, dev)
     args = (rp, ci, ei, fr, fm, mem, ep, ca)
     kw = dict(capacity=capacity, chunk=8)
     _assert_hops_equal(kernel("batched_hop")(*args, **kw),
                        tref.batched_hop_ref(*args, **kw))
+
+
+@pytest.mark.parametrize("name", [*RANDOM_HOPS, "empty", "total_is_capacity",
+                                  "overflow", "big_vertex", "ragged_b3",
+                                  "holes", "sparse_holes", "g5_shape"])
+def test_batched_hop_kernel_matches_plain(cuda, name):
+    _hop_matches_plain(name, cuda)
+
+
+def test_batched_hop_kernel_alternating_shapes(cuda):
+    """Shapes alternately on one stream: the cached workspace is reused (and
+    grown) and every call finds the look-back words the last one left."""
+    for name in ("holes", "ragged_b3", "holes", "big_vertex", "ragged_b3"):
+        _hop_matches_plain(name, cuda)
+
+
+def test_batched_hop_kernel_replays_in_a_cuda_graph(cuda):
+    """A hop captured in a CUDA graph, replayed on new frontiers, gives the
+    plain version's outputs every time: the kernels keep the state that
+    resets the look-back on the card, none on the host."""
+    (rp, ci, ei, mem, ep, ca), fr, fm, capacity = _hop_case("holes", cuda)
+    args = (rp, ci, ei, fr, fm, mem, ep, ca)
+    kw = dict(capacity=capacity, chunk=8)
+    hop = kernel("batched_hop")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        hop(*args, **kw)               # the workspace, outside the capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            got = hop(*args, **kw)
+    rng = np.random.default_rng(9)
+    for _ in range(3):
+        fr.copy_(torch.as_tensor(rng.integers(0, 300, fr.shape),
+                                 dtype=torch.int32))
+        fm.copy_(torch.as_tensor(rng.random(fm.shape) < 0.3))
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_hops_equal(got, tref.batched_hop_ref(*args, **kw))
 
 
 @pytest.mark.parametrize("b,h,hk,sq,skv,causal,dh,dtype", [
@@ -239,6 +379,24 @@ def test_embedding_bag_kernel_matches_plain(cuda, nbags, bag, V, D,
                                rtol=3e-4, atol=3e-5)
 
 
+def test_kernels_launch_on_the_current_stream(cuda):
+    """The wrappers launch on PyTorch's current stream, and the hop keeps a
+    workspace per stream: a side stream gives the plain version's outputs."""
+    from repro_torch.kernels import _lib
+    x = torch.ones(4, device=cuda)
+    side = torch.cuda.Stream()
+    assert _lib.stream_of(x) == torch.cuda.current_stream().cuda_stream
+    with torch.cuda.stream(side):
+        assert _lib.stream_of(x) == side.cuda_stream
+        (rp, ci, ei, mem, ep, ca), fr, fm, capacity = _hop_case("holes",
+                                                                cuda)
+        args = (rp, ci, ei, fr, fm, mem, ep, ca)
+        got = kernel("batched_hop")(*args, capacity=capacity, chunk=8)
+    side.synchronize()
+    _assert_hops_equal(got, tref.batched_hop_ref(*args, capacity=capacity,
+                                                 chunk=8))
+
+
 def test_wrappers_reject_inputs_they_do_not_take(cuda):
     x = torch.ones((4, 4), device=cuda)
     with pytest.raises(TypeError):
@@ -276,6 +434,17 @@ def test_wrappers_reject_inputs_they_do_not_take(cuda):
         bag(x, idx, torch.ones((2, 2), device=cuda))
     with pytest.raises(ValueError, match="CUDA"):
         bag(x, idx.cpu())
+    (rp, ci, ei, mem, ep, ca), fr, fm, capacity = _hop_case("holes", cuda)
+    hop = kernel("batched_hop")
+    kw = dict(capacity=capacity, chunk=8)
+    with pytest.raises(TypeError):
+        hop(rp, ci, ei, fr.long(), fm, mem, ep, ca, **kw)
+    with pytest.raises(ValueError):            # a strided frontier
+        hop(rp, ci, ei, fr[:, ::2], fm[:, ::2], mem, ep, ca, **kw)
+    with pytest.raises(ValueError):            # masks of another shape
+        hop(rp, ci, ei, fr, fm[:1], mem, ep, ca, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        hop(rp.cpu(), ci, ei, fr, fm, mem, ep, ca, **kw)
 
 
 def test_engine_on_card_matches_cpu_and_launches_every_kernel(cuda):

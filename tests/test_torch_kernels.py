@@ -81,7 +81,9 @@ def test_cosine_matches_pallas(m, n, d):
                                np.asarray(want), rtol=3e-4, atol=3e-5)
 
 
-@pytest.mark.parametrize("n,d,bn", [(100, 16, 32), (512, 64, 128), (65, 7, 16)])
+@pytest.mark.parametrize("n,d,bn", [(100, 16, 32), (512, 64, 128), (65, 7, 16),
+                                    # the shard regression's width; one row
+                                    (300, 4, 64), (1, 16, 8)])
 def test_logreg_matches_pallas(n, d, bn):
     x = RNG.standard_normal((n, d)).astype(np.float32)
     y = RNG.integers(0, 2, n).astype(np.float32)
@@ -120,10 +122,12 @@ def _assert_same(jax_out, torch_out):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("seed,capacity,n,c0", [(0, 128, 12, 6),
-                                                (1, 128, 12, 6),
-                                                (2, 256, 12, 6),
-                                                (3, 512, 60, 40)])
+# the last two: candidates overflowing the capacity; an empty frontier
+HOP_CASES = [(0, 128, 12, 6), (1, 128, 12, 6), (2, 256, 12, 6),
+             (3, 512, 60, 40), (4, 128, 12, 60), (5, 128, 12, 0)]
+
+
+@pytest.mark.parametrize("seed,capacity,n,c0", HOP_CASES)
 def test_fused_hop_matches_pallas(seed, capacity, n, c0):
     tables = _random_hop_inputs(seed, n=n)
     rng = np.random.default_rng(seed + 100)
@@ -154,6 +158,61 @@ def test_batched_hop_matches_pallas(seed, B, capacity):
     want = jax_hop.batched_hop(*args, interpret=True, **kw)
     got = tref.batched_hop_ref(*(T(a) for a in args), **kw)
     _assert_same(want, got)
+
+
+@pytest.mark.parametrize("seed,capacity,n,c0", HOP_CASES)
+def test_hop_phases_match_reference_prelude(seed, capacity, n, c0):
+    """Each phase of the plain hop against the reference: the degree scan
+    against the jnp prelude of ``batched_hop`` (out_off, total, overflowed),
+    the expand phase, fed that prelude, against the Pallas kernel."""
+    tables = _random_hop_inputs(seed, n=n)
+    rng = np.random.default_rng(seed + 100)
+    frontiers = np.zeros((2, capacity), np.int32)
+    fmasks = np.zeros((2, capacity), bool)
+    frontiers[0, :c0] = rng.integers(0, n, c0)
+    fmasks[0, :c0] = True
+    live = rng.random(capacity) < 0.03          # a mask with holes
+    frontiers[1] = rng.integers(0, n, capacity)
+    fmasks[1] = live
+    row_ptr, col_idx, edge_id, member, edge_pred, chunk_alive = tables
+    fr = jnp.asarray(frontiers)
+    rp = jnp.asarray(row_ptr)
+    deg = jnp.where(fmasks, (rp[fr + 1] - rp[fr]).astype(jnp.int32), 0)
+    out_off = (jnp.cumsum(deg, axis=1) - deg).astype(jnp.int32)
+    total = jnp.sum(deg, axis=1, dtype=jnp.int32)
+    _assert_same((out_off, total, total > capacity),
+                 tref.hop_degree_scan_ref(T(row_ptr), T(frontiers),
+                                          T(fmasks), capacity=capacity))
+    kw = dict(capacity=capacity, chunk=8)
+    want = jax_hop.batched_hop(*tables[:3], frontiers, fmasks, *tables[3:],
+                               interpret=True, **kw)
+    got = tref.hop_expand_ref(T(row_ptr), T(col_idx), T(edge_id),
+                              T(frontiers), T(np.asarray(out_off)),
+                              T(np.asarray(total)), T(member), T(edge_pred),
+                              T(chunk_alive), **kw)
+    _assert_same(want[:4], got)
+
+
+def test_logreg_plan_fills_the_card():
+    """The row tile comes from the shape: at A1 at least two blocks per SM
+    of an H100, with lanes per row so that one pass covers the tile's rows
+    (a thread per row at the shard regression's d = 4); a wide d
+    shrinks the tile to the shared-memory budget. The cross-block sum takes
+    one level where the partials are few (the shard regression), two at
+    A1."""
+    from repro_torch.kernels.logreg.logreg import TILE_BUDGET, plan
+    rows, blocks, lanes, _ = plan(15910, 200, 132)
+    assert blocks >= 2 * 132 and rows * 200 <= TILE_BUDGET
+    assert rows * lanes <= 256 < 2 * rows * lanes      # one pass of rows
+    rows, blocks, lanes, _ = plan(60000, 4, 132)
+    assert blocks >= 2 * 132 and lanes == 1
+    rows, blocks, lanes, _ = plan(256, 4096, 132)
+    assert rows * 4096 <= TILE_BUDGET and blocks * rows >= 256
+    # the reduction: one level where the partials are few, else groups
+    assert plan(1, 7, 132) == (1, 1, 8, 1)
+    assert plan(256, 4096, 132)[2] == 32
+    assert plan(60000, 4, 132)[3] == plan(60000, 4, 132)[1]
+    assert plan(15910, 200, 132)[3] == 16
 
 
 def _chain_graph(seed=5, n=40, m=160):
