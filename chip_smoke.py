@@ -28,6 +28,15 @@ Phases (each raises on failure; the script then exits non-zero):
      versions within the tolerances above. Then each kernel is compared
      with its plain version and timed (CUDA events) on the very inputs
      the main path gave it;
+  3b. the declarative surface on the same sf=10 database: seven SQL/PGQ
+     texts (G1-G5, q_opt_skew, q_edge_scan) parsed by ``core.sqlpgq``,
+     each equal to its ``m2bench`` builder's Query, run on the card engine
+     beside the builder's query with the counters set to 0 just before
+     and read just after. Checks: equal fingerprints, equal ``explain``
+     text, as many hop launches as the builder's query (G3 and G5 must
+     lower to device-pallas and launch the hop). Then the plan sweep
+     (``analysis.verify_sweep.run_sweep(sf=1)`` on the card): 192
+     combinations, none failed;
   4. the LM serving path: Qwen2-1.5B at full width and depth, bf16,
      ``attn_impl="flash"``, random weights from ``torch.Generator(seed
      0)`` on the card, driven through ``launch.serve`` (batch 8, prompt
@@ -571,7 +580,119 @@ def phase_main():
     say(f"phase 3 peak device memory: {peak_gib:.3f} GiB")
     del res, plain
     torch.cuda.empty_cache()
-    return launches, cap
+    return launches, cap, db
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: declarative surface and plan sweep on the card
+# ---------------------------------------------------------------------------
+
+# The SQL/PGQ text of each workload query; parse() must give the builder's
+# Query (same name in data/m2bench.py).
+SQL_TEXTS = {
+    "q_g1": "SELECT Customer.id, t.tid FROM Customer MATCH "
+            "(p:Persons)-[e0:Interested_in]->(t:Tags) ON Interested_in "
+            "WHERE t.content = 'food' AND Customer.person_id = p.pid",
+    "q_g2": "SELECT Orders.order_id, t.tid FROM Customer, Orders MATCH "
+            "(p:Persons)-[e0:Interested_in]->(t:Tags) ON Interested_in "
+            "WHERE Customer.person_id = p.pid AND Orders.customer_id = "
+            "Customer.id AND p.country = 'cn' AND Orders.shipping.days <= 3",
+    "q_g3": "SELECT a.pid, c.pid MATCH (a:Persons)-[e0:Follows]->"
+            "(b:Persons)-[e1:Follows]->(c:Persons) ON Follows "
+            "WHERE a.country = 'au' AND c.country = 'uk'",
+    "q_g4": "SELECT Customer.id, t.tid FROM Product, Orders, Customer MATCH "
+            "(p:Persons)-[e0:Interested_in]->(t:Tags) ON Interested_in "
+            "WHERE Product.id = Orders.product_id AND Orders.customer_id = "
+            "Customer.id AND Customer.person_id = p.pid AND "
+            "Product.title = 'Yogurt'",
+    "q_g5": "SELECT p.pid, t.tid MATCH (p:Persons)-[e0:Interested_in]->"
+            "(t:Tags) ON Interested_in WHERE e0.weight > 0.9",
+    "q_opt_skew": "SELECT Customer.id, t.tid FROM Orders, Customer, Product "
+                  "MATCH (p:Persons)-[e0:Interested_in]->(t:Tags) ON "
+                  "Interested_in WHERE Customer.person_id = p.pid AND "
+                  "Orders.customer_id = Customer.id AND Product.id = "
+                  "Orders.product_id AND Product.title = 'Yogurt' AND "
+                  "t.content = 'food'",
+    "q_edge_scan": "SELECT e0.weight MATCH (p:Persons)-[e0:Interested_in]->"
+                   "(t:Tags) ON Interested_in WHERE e0.weight > 0.5",
+}
+# the text forms that must lower to the traversal kernel
+SQL_ON_DEVICE = ("q_g3", "q_g5")
+SWEEP_COMBINATIONS = 192
+
+
+def phase_declarative(db):
+    """The SQL/PGQ texts of the workload on the card engine at sf=10, each
+    against its builder query on the same engine, then the plan sweep on
+    the card."""
+    import torch
+    from repro_torch.analysis.verify_sweep import run_sweep
+    from repro_torch.core import GredoEngine
+    from repro_torch.core.observe import result_fingerprint
+    from repro_torch.core.sqlpgq import parse
+    from repro_torch.data import m2bench
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    parsed = {name: parse(text) for name, text in SQL_TEXTS.items()}
+    parse_ms = (time.perf_counter() - t0) * 1e3
+    for name, q in parsed.items():
+        if q != getattr(m2bench, name)():
+            raise AssertionError(f"{name}: parse() differs from the builder")
+    say(f"phase 3b: {len(parsed)} SQL/PGQ texts parsed in {parse_ms:.3f} ms, "
+        f"each equal to its m2bench builder")
+
+    eng = GredoEngine(db)
+
+    def run(q):
+        before = launch_counts()["batched_hop"]
+        t = time.perf_counter()
+        out = eng.query(q)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        return out, launch_counts()["batched_hop"] - before, ms, \
+            list(eng.last_stats.rewrites)
+
+    for q in parsed.values():                   # warm-up
+        eng.query(q)
+    torch.cuda.synchronize()
+    walls, built_walls = {}, {}
+    reset_launch_counts()
+    for name, q in parsed.items():
+        built = getattr(m2bench, name)()
+        r_b, hop_b, built_walls[name], _ = run(built)
+        r_t, hop_t, walls[name], rewrites = run(q)
+        a, b = result_fingerprint(r_t), result_fingerprint(r_b)
+        if a != b:
+            raise AssertionError(f"{name}: text fingerprint {a} != builder "
+                                 f"{b}")
+        if eng.explain(q) != eng.explain(built):
+            raise AssertionError(f"{name}: explain differs from the builder")
+        if hop_t != hop_b:
+            raise AssertionError(f"{name}: {hop_t} hop launches from the "
+                                 f"text, {hop_b} from the builder")
+        on_device = any("device-pallas" in n for n in rewrites)
+        if name in SQL_ON_DEVICE and not (on_device and hop_t > 0):
+            raise AssertionError(f"{name}: the text form did not launch the "
+                                 f"traversal kernel: {rewrites}")
+        say(f"{name}: text == builder, {r_t.nrows} rows, fingerprint {a}, "
+            f"{hop_t} hop launches")
+    launches = launch_counts()
+    say("phase 3b launches on the SQL/PGQ path: " + json.dumps(launches))
+    say("phase 3b SQL/PGQ wall ms (after warm-up, synchronised): "
+        + json.dumps({k: round(v, 3) for k, v in walls.items()}))
+    say("phase 3b builder wall ms, same engine, just before each text: "
+        + json.dumps({k: round(v, 3) for k, v in built_walls.items()}))
+
+    t0 = time.perf_counter()
+    doc = run_sweep(sf=1)
+    sweep_s = time.perf_counter() - t0
+    if doc["combinations"] != SWEEP_COMBINATIONS or doc["failed"]:
+        raise AssertionError(f"plan sweep: {doc['combinations']} "
+                             f"combinations, {doc['failed']} failed")
+    say(f"phase 3b plan sweep on the card: {doc['combinations']} "
+        f"combinations, {doc['failed']} failed, {doc['errors']} errors, "
+        f"{doc['warnings']} warnings in {sweep_s:.3f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1030,7 +1151,9 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device()
     phase_sweep()
-    launches, cap = phase_main()
+    launches, cap, db = phase_main()
+    phase_declarative(db)
+    del db
     rows = kernel_report(launches, cap)
     rows += flash_rows(phase_serve()) + [embedding_bag_row()]
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -2,18 +2,21 @@
   * ``config()``       — full published config
   * ``smoke_config()`` — reduced same-family config for CPU smoke tests
   * ``SHAPES``         — dict shape_name -> spec dict (the assigned cells)
-  * ``FAMILY``         — "lm"
+  * ``FAMILY``         — "lm" | "db"
 
-Only the ported archs are listed: the three dense LMs. The MoE LMs
-(``olmoe_1b_7b``, ``granite_moe_1b_a400m``), the GNNs, recsys and the
-``gredo`` workload config come with the modules they need (ROADMAP,
-queue 1 item 10).
+Only the ported archs are listed: the three dense LMs and the paper's own
+``gredo`` workload config (``FAMILY = "db"``; ``all_cells`` skips it, as
+the JAX package's registry does). The MoE LMs (``olmoe_1b_7b``,
+``granite_moe_1b_a400m``), the GNNs and recsys come with the modules they
+need (ROADMAP, queue 1 item 10).
 """
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ["starcoder2_3b", "qwen2_1_5b", "stablelm_3b"]
+ARCHS = ["starcoder2_3b", "qwen2_1_5b", "stablelm_3b",
+         # the paper's own workload
+         "gredo"]
 
 
 def get(arch: str):
@@ -26,6 +29,8 @@ def get(arch: str):
 def all_cells(include_skipped: bool = False):
     """Yield (arch, shape_name, spec) for every assigned cell."""
     for arch in ARCHS:
+        if arch == "gredo":
+            continue
         for shape, spec in get(arch).SHAPES.items():
             if spec.get("skip") and not include_skipped:
                 continue

@@ -8,6 +8,9 @@
   CUDA kernels on the card (their plain PyTorch versions on the CPU). The
   JAX package's device-mesh forms are not ported yet (ROADMAP queue 1,
   item 11).
+* ``volcano``: a literal tuple-at-a-time volcano implementation of the same
+  operators on host numpy arrays — the ablation baseline (GredoDB-S /
+  GredoDB-D rely on volcano-model execution for GCDA in §7.2).
 """
 from __future__ import annotations
 
@@ -181,3 +184,74 @@ def regression_distributed(x, y, mesh, *, iters: int = 50, lr: float = 0.5,
                            l2: float = 1e-4):
     """Data-parallel REGRESSION over a device mesh — not ported yet."""
     raise NotImplementedError(_MESH_TODO)
+
+
+# ---------------------------------------------------------------------------
+# Volcano baseline: tuple-at-a-time GCDA (ablation §7.2)
+# ---------------------------------------------------------------------------
+
+
+class volcano:
+    """Literal tuple-at-a-time execution of the same analytics — each value
+    flows through a Python-level iterator chain (the paper's criticism:
+    excessive iterator invocations, function-call overhead, no batching)."""
+
+    @staticmethod
+    def rel2matrix(table: Table, columns: Sequence[str]) -> np.ndarray:
+        out = []
+        for i in range(table.nrows):          # tuple at a time
+            row = []
+            for c in columns:
+                col = table.col(c)
+                v = col.codes[i] if isinstance(col, DictColumn) else np.asarray(col)[i]
+                row.append(float(v))
+            out.append(row)
+        return np.asarray(out, dtype=np.float32)
+
+    @staticmethod
+    def multiply(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+        m, k = x.shape
+        k2, n = y.shape
+        z = np.zeros((m, n), dtype=np.float32)
+        for i in range(m):
+            for j in range(n):
+                acc = 0.0
+                for l in range(k):
+                    acc += float(x[i, l]) * float(y[l, j])
+                z[i, j] = acc
+        return z
+
+    @staticmethod
+    def similarity(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+        m, n = x.shape[0], y.shape[0]
+        out = np.zeros((m, n), dtype=np.float32)
+        for i in range(m):
+            for j in range(n):
+                dot = nx = ny = 0.0
+                for l in range(x.shape[1]):
+                    dot += float(x[i, l]) * float(y[j, l])
+                    nx += float(x[i, l]) ** 2
+                    ny += float(y[j, l]) ** 2
+                out[i, j] = dot / max((nx ** 0.5) * (ny ** 0.5), 1e-12)
+        return out
+
+    @staticmethod
+    def regression(x: np.ndarray, y: np.ndarray, iters: int = 100,
+                   lr: float = 0.5, l2: float = 1e-4) -> tuple[np.ndarray, float]:
+        n, d = x.shape
+        w = np.zeros(d, dtype=np.float64)
+        loss = 0.0
+        for _ in range(iters):
+            g = np.zeros(d, dtype=np.float64)
+            loss = 0.0
+            for i in range(n):                 # tuple at a time
+                z = 0.0
+                for l in range(d):
+                    z += float(x[i, l]) * w[l]
+                p = 1.0 / (1.0 + np.exp(-z))
+                err = p - float(y[i])
+                for l in range(d):
+                    g[l] += err * float(x[i, l])
+                loss += np.logaddexp(0.0, z) - float(y[i]) * z
+            w -= lr * (g / n + l2 * w)
+        return w.astype(np.float32), float(loss / n)

@@ -197,6 +197,23 @@ def test_configs_match_reference(arch):
     assert configs.get(arch.replace("_", "-")).FAMILY == "lm"
 
 
+def test_gredo_config_and_cells_match_reference():
+    """The paper's own workload config is registered (``FAMILY`` "db", the
+    reference's SHAPES), skipped by ``all_cells`` as in the reference, and
+    the cells of the archs both registries list are the same."""
+    gredo, jgredo = configs.get("gredo"), jax_configs.get("gredo")
+    assert gredo.FAMILY == jgredo.FAMILY == "db"
+    assert gredo.SHAPES == jgredo.SHAPES
+    assert gredo.smoke_config()["sf"] == jgredo.smoke_config()["sf"] == 1
+    shared = set(configs.ARCHS) & set(jax_configs.ARCHS)
+    assert "gredo" in shared
+    for skipped in (False, True):
+        cells = list(configs.all_cells(include_skipped=skipped))
+        assert all(arch != "gredo" for arch, _, _ in cells)
+        assert cells == [c for c in jax_configs.all_cells(
+            include_skipped=skipped) if c[0] in shared]
+
+
 def test_unported_parts_raise():
     moe = TransformerConfig(n_layers=1, d_model=32, n_heads=2, n_kv_heads=2,
                             d_ff=32, vocab=64, n_experts=4)
