@@ -51,11 +51,37 @@ Phases (each raises on failure; the script then exits non-zero):
      |dense|); and, in fp32 with 2 layers, the batcher's greedy tokens
      against each request served alone (the prefill token must agree
      exactly; the agreement rate of the decoded tokens is printed);
-  5. one JSON line listing the kernels, logreg_grad once at A1's shape and
-     once at a_shard_reg's (launches, max error, times: CUDA events over
-     back-to-back calls, the host's issue time, and the device time and
-     the number of device operations per call from the profiler; bound);
-  6. the result line ``{"ok": true, "device": {...}}``.
+  5. the MoE serving path: OLMoE-1B-7B at full width and depth (16
+     layers, 64 experts top-8), bf16, flash, the router fp32, through the
+     same (a) and (b) traffic as phase 4, each once with the counters set
+     to 0 (flash launches must be n_layers per forward) and once more,
+     timed (the tokens must repeat). Prints the decode step against the
+     time to read every weight once, the share of top-k assignments
+     dropped at capacity in a prefill and a decode step (recorded through
+     the routing helper ``_moe_block`` calls), a profiler window of each,
+     and flash against dense logits (a prefill and 4 decode steps). A
+     router logit within bf16 rounding of the k-th best picks another
+     expert, and the flip reaches every later token through attention and
+     the capacity queues, so the dense run routes itself once (printed:
+     top-k assignments that differ, tokens routed alike) and once pinned
+     to the flash run's experts, which is checked: max |flash - dense| <=
+     2e-2 * max |dense| in bf16, and on the same weights in fp32 <= 1e-4.
+     No batched vs alone check: capacity couples the rows of a batch (as
+     in the reference);
+  6. the training path: Granite-MoE-1B-A400M at full width and depth, 5
+     ``Trainer`` steps (bf16 activations, fp32 masters and AdamW, chunked
+     attention) on ``TokenStream(batch=4, seq=512)``: finite losses, ms per
+     step, peak memory; then its widths at 2 layers in fp32: one step on
+     the card against one on the CPU from the same weights (loss,
+     gradients, updated weights), and a run failed at step 3 (checkpoints
+     every 2 steps) and restarted against an uninterrupted one
+     (``TRAIN_TOL``);
+  7. one JSON line listing the kernels, logreg_grad once at A1's shape and
+     once at a_shard_reg's, flash at phase 4's and phase 5's calls
+     (launches, max error, times: CUDA events over back-to-back calls, the
+     host's issue time, and the device time and the number of device
+     operations per call from the profiler; bound);
+  8. the result line ``{"ok": true, "device": {...}}``.
 
 Nothing of JAX or of the JAX package is imported. Without a CUDA device,
 or without the rest of the repository beside it, the script fails before
@@ -90,6 +116,23 @@ TOL = {"matmul": (2e-4, 2e-4), "matmul_bf16": (2e-2, 2e-2),
 # along the two paths over 28 layers).
 LOGIT_SCALE_TOL = 2e-2
 SERVE_ARCH = "qwen2-1.5b"
+MOE_ARCH = "olmoe-1b-7b"
+# The MoE model's flash vs dense logits in fp32 (TF32 off), the dense run
+# pinned to the flash run's experts: as a share of the logits' scale, the
+# MoE twins' fp32 logit tolerance.
+MOE_FP32_TOL = 1e-4
+TRAIN_ARCH = "granite-moe-1b-a400m"
+# Training checks in fp32 with TF32 off, card against CPU and a restarted
+# run against an uninterrupted one: the loss within 1e-5 (relative); each
+# gradient within 1e-4 of its tensor's largest (fp32 sums in another
+# order differ in their last bits); and the weights within 1e-4, a third
+# of one AdamW step at lr 3e-4, wherever the clipped gradient is at least
+# 100 x AdamW's eps. A first AdamW step moves a weight by lr * g / (|g| +
+# eps): near eps the last-bit gradient difference is multiplied by
+# lr / eps, so those weights are printed but not held; elsewhere a
+# gradient of the wrong sign moves a weight by two steps.
+TRAIN_TOL = {"loss": 1e-5, "grads": 1e-4, "weights": 1e-4}
+CONDITIONED = 100.0      # x AdamW's eps: the weights held to TRAIN_TOL
 GCDIA_KERNELS = ("matmul", "cosine_sim", "logreg_grad", "batched_hop")
 # a_shard_reg regresses on four feature columns (m2bench.a_shard_reg)
 SHARD_FEATURES = 4
@@ -1063,7 +1106,453 @@ def phase_serve():
     return cap
 
 
-def flash_rows(cap) -> list:
+# ---------------------------------------------------------------------------
+# Phase 5: MoE serving (OLMoE-1B-7B, full width and depth)
+# ---------------------------------------------------------------------------
+
+
+class RouteRecorder:
+    """Records every MoE routing of the forwards run inside it, through
+    ``transformer._moe_route`` (the helper ``_moe_block`` calls): each
+    layer's experts (G, T, k), capacity cut (G, T, k), and the experts the
+    run's own router logits chose. With ``replay`` (another recorder's
+    routes, call for call) each call routes to the replayed experts
+    instead, with gates from its own logits (``transformer._route``)."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tf
+        self.routes: list = []
+        self._orig = tf._moe_route
+
+        def recording(x, router_w, cfg):
+            r = own = self._orig(x, router_w, cfg)
+            if self.replay is not None:
+                r = tf._route(own.logits, self.replay[len(self.routes)][0],
+                              cfg)
+            self.routes.append((r.idx, r.keep.reshape(r.idx.shape), own.idx))
+            return r
+        tf._moe_route = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as tf
+        tf._moe_route = self._orig
+
+    def dropped(self) -> tuple[int, int]:
+        """(assignments dropped at capacity, assignments) over all calls."""
+        n = sum(keep.numel() for _, keep, _ in self.routes)
+        return n - sum(int(keep.sum()) for _, keep, _ in self.routes), n
+
+
+def differing(a, b) -> int:
+    """Top-k assignments of ``a`` (G, T, k) absent from ``b``'s token."""
+    return int((a[..., :, None] != b[..., None, :]).all(-1).sum())
+
+
+def routing_agreement(a: list, b: list, shape):
+    """(B, S) mask of the tokens whose experts and capacity drops agree
+    between two runs' routings of one forward, in every layer."""
+    agree = None
+    for (ia, ka, _), (ib, kb, _) in zip(a, b):
+        sa, pa = ia.sort(-1)
+        sb, pb = ib.sort(-1)
+        same = (sa == sb).all(-1) & (ka.gather(-1, pa) ==
+                                     kb.gather(-1, pb)).all(-1)
+        agree = same if agree is None else agree & same
+    return agree.reshape(shape)
+
+
+def moe_flash_vs_dense(params, cfg, prompts, tol, free_run=False) -> str:
+    """Flash against the plain dense attention on one MoE model's weights
+    and fed tokens (a prefill and 4 decode steps), the dense run pinned to
+    the flash run's experts, so the two differ by attention and rounding
+    alone: max |flash - dense| <= tol * max |dense| at every step. With
+    ``free_run``, a dense run that routes itself first: the top-k
+    assignments that differ, the tokens routed alike in every layer, and
+    the logit gap over all tokens and over those."""
+    import dataclasses
+    import torch
+    dense = dataclasses.replace(cfg, attn_impl="dense")
+    L = cfg.n_layers
+    with RouteRecorder() as rf:
+        flash_out, fed = logits_trace(params, cfg, prompts)
+    n_assign = sum(idx.numel() for idx, _, _ in rf.routes)
+    out = []
+    if free_run:
+        with RouteRecorder() as rd:
+            free_out, _ = logits_trace(params, dense, prompts, fed)
+        worst_all = worst_alike = 0.0
+        n_alike = n_tok = 0
+        for i, (a, d) in enumerate(zip(flash_out, free_out)):
+            alike = routing_agreement(rf.routes[i * L:(i + 1) * L],
+                                      rd.routes[i * L:(i + 1) * L],
+                                      a.shape[:2])
+            n_alike, n_tok = n_alike + int(alike.sum()), n_tok + alike.numel()
+            gap = (a.float() - d.float()).abs().amax(-1)
+            scale = float(d.float().abs().max())
+            worst_all = max(worst_all, float(gap.max()) / scale)
+            if bool(alike.any()):
+                worst_alike = max(worst_alike, float(gap[alike].max()) / scale)
+        n_diff = sum(differing(a[0], b[0])
+                     for a, b in zip(rf.routes, rd.routes))
+        del free_out
+        out.append(f"free-running dense: {n_diff}/{n_assign} top-k "
+                   f"assignments differ, {n_alike}/{n_tok} tokens routed "
+                   f"alike in every layer, max |diff| / max |dense| "
+                   f"{worst_all:.4g} over all tokens, {worst_alike:.4g} over "
+                   "those")
+    with RouteRecorder(replay=rf.routes) as rp:
+        dense_out, _ = logits_trace(params, dense, prompts, fed)
+    n_own = sum(differing(own, idx) for idx, _, own in rp.routes)
+    worst = 0.0
+    for i, (a, d) in enumerate(zip(flash_out, dense_out)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"MoE flash logits step {i}: not finite")
+        err = float((a.float() - d.float()).abs().max())
+        scale = float(d.float().abs().max())
+        worst = max(worst, err / scale)
+        if err > tol * scale:
+            raise AssertionError(
+                f"MoE logits step {i}, {cfg.dtype}: max |flash - dense| "
+                f"{err} > {tol} * {scale} with the dense run pinned to the "
+                f"flash run's experts ({'; '.join(out)})")
+    out.append(f"dense pinned to the flash run's experts ({n_own}/"
+               f"{n_assign} differ from its own router's top-k): max |diff|"
+               f" / max |dense| {worst:.4g} (limit {tol})")
+    return "; ".join(out)
+
+
+def decode_step_bytes(cfg, batch: int, length: int) -> int:
+    """Bytes one decode step must read: every weight once (the (E, C)
+    buffers run every expert's GEMM, however few tokens reach it; bf16,
+    the router and norms fp32), the embedding rows of the new tokens, and
+    the live KV cache."""
+    d, h, kv, dh, f, E = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim, cfg.d_ff, cfg.n_experts)
+    n_mats = 3 if cfg.mlp == "swiglu" else 2
+    attn = (2 * d * h * dh + 2 * d * kv * dh) * 2
+    mlp = E * n_mats * d * f * 2 + d * E * 4
+    layers = cfg.n_layers * (attn + mlp + 2 * d * 4)
+    head = 0 if cfg.tie_embeddings else d * cfg.vocab * 2
+    kv_read = cfg.n_layers * 2 * batch * kv * length * dh * 2
+    return layers + head + batch * d * 2 + d * 4 + kv_read
+
+
+def phase_moe_serve():
+    import dataclasses
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    dev = torch.device(DEVICE)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, params = serve.build(MOE_ARCH, "full", dev)
+    torch.cuda.synchronize()
+    want = dict(n_layers=16, d_model=2048, n_heads=16, n_kv_heads=16,
+                head_dim=128, n_experts=64, top_k=8, d_ff=1024, vocab=50304,
+                attn_impl="flash", dtype=torch.bfloat16)
+    got = {k: getattr(cfg, k) for k in want}
+    if got != want:
+        raise AssertionError(f"serve.build({MOE_ARCH!r}) gave {got}")
+    if params["layers"]["router"].dtype != torch.float32:
+        raise AssertionError("the router was cast off fp32")
+    say(f"phase 5: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} d_ff {cfg.d_ff}, "
+        f"{cfg.param_count() / 1e9:.3f} B params, weights in "
+        f"{time.perf_counter() - t0:.2f} s (set-up), "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card")
+    prompts = torch.randint(0, cfg.vocab, (8, 512), device=dev,
+                            generator=torch.Generator(dev).manual_seed(1))
+
+    cap, launches, stats = Capture(), {}, {}
+    cap.wrap("flash_attention", flash_work, kind=flash_kind, clone=True)
+    try:
+        for run, fn in (("serve", lambda: run_serve(params, cfg, prompts)),
+                        ("batcher", lambda: run_batcher(params, cfg))):
+            reset_launch_counts()
+            out = fn()
+            launches[run] = launch_counts()
+            forwards = 32 if run == "serve" else \
+                out[1]["prefills"] + out[1]["decode_steps"]
+            if launches[run]["flash_attention"] != cfg.n_layers * forwards:
+                raise AssertionError(
+                    f"{run}: {launches[run]['flash_attention']} flash "
+                    f"launches for {forwards} forwards of {cfg.n_layers} "
+                    "layers")
+            say(f"phase 5 launches on the {run} path ({forwards} forwards): "
+                + json.dumps(launches[run]))
+            stats[run] = out
+    finally:
+        cap.close()
+    toks = stats["serve"][0]
+    done = stats["batcher"][0]
+    if toks.shape != (8, 32) or bool(((toks < 0) | (toks >= cfg.vocab)).any()):
+        raise AssertionError(f"serve tokens {tuple(toks.shape)} out of range")
+    for c in done:
+        if len(c.tokens) < 1 or not all(0 <= x < cfg.vocab for x in c.tokens):
+            raise AssertionError(f"batcher request {c.rid}: {c.tokens}")
+
+    toks2, timing, peak_a = run_serve(params, cfg, prompts)
+    if not torch.equal(toks, toks2):
+        raise AssertionError("MoE serve: a second run gave other tokens")
+    step_ms = timing["decode_s"] * 1e3 / 31
+    bound = decode_step_bytes(cfg, 8, 543) / PEAK_BYTES_S * 1e3
+    say(f"(a) serve batch 8 x prompt 512, 32 new: prefill "
+        f"{timing['prefill_s'] * 1e3:.3f} ms, decode "
+        f"{timing['decode_tok_s']:.1f} tokens/s ({step_ms:.3f} ms per step "
+        f"against a bound of {bound:.3f} ms: every expert's weights read "
+        f"once), peak device memory {peak_a:.3f} GiB, flash launches "
+        f"{launches['serve']['flash_attention']}")
+    done2, bstats, timer, wall, peak_b = run_batcher(params, cfg, timed=True)
+    if [c.tokens for c in done2] != [c.tokens for c in done]:
+        raise AssertionError("MoE batcher: a second run gave other tokens")
+    dec_tokens = sum(bstats["slot_occupancy"])
+    say(f"(b) batcher 4 slots, 12 requests: {bstats['prefills']} prefills "
+        f"{timer.s['prefill'] * 1e3 / timer.n['prefill']:.3f} ms mean, "
+        f"{bstats['decode_steps']} decode steps "
+        f"{dec_tokens / timer.s['decode']:.1f} tokens/s "
+        f"({timer.s['decode'] * 1e3 / timer.n['decode']:.3f} ms per step, "
+        f"mean occupancy {dec_tokens / bstats['decode_steps']:.2f}), wall "
+        f"{wall * 1e3:.3f} ms, peak device memory {peak_b:.3f} GiB, flash "
+        f"launches {launches['batcher']['flash_attention']}")
+
+    cache = tf.init_cache(cfg, 8, 544, dev)
+    zeros = torch.zeros(8, dtype=torch.int32, device=dev)
+    for label, fn in (
+            ("prefill 8 x 512", lambda: tf.forward(
+                params, prompts, cfg, cache=cache, cache_lengths=zeros)),
+            ("decode step at length 543", lambda: tf.serve_step(
+                params, cache, prompts[:, :1], zeros + 543, cfg))):
+        with RouteRecorder() as rec:
+            fn()
+        n_drop, n = rec.dropped()
+        say(f"(a) {label}: {n_drop}/{n} top-k assignments dropped at "
+            f"capacity ({n_drop / n:.4f}) over {len(rec.routes)} MoE layers")
+        profile_window(f"(a) {label}", fn)
+    del cache
+
+    # flash against the plain dense attention, same weights and tokens
+    line = moe_flash_vs_dense(params, cfg, prompts, LOGIT_SCALE_TOL, True)
+    say(f"MoE flash vs dense logits, bf16 (prefill + 4 decode steps, batch "
+        f"8): {line}")
+    del params
+    torch.cuda.empty_cache()
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = tf.init_params(torch.Generator(dev).manual_seed(0), c32)
+    say("MoE flash vs dense logits, the same weights in fp32: "
+        f"{moe_flash_vs_dense(p32, c32, prompts, MOE_FP32_TOL)}")
+    del p32
+    torch.cuda.empty_cache()
+    return cap
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the LM training path (Granite-MoE-1B-A400M)
+# ---------------------------------------------------------------------------
+
+
+def train_run(cfg, params, stream, dev, ckpt_dir, total_steps, **kw):
+    """A ``Trainer`` of ``loss_fn`` over ``stream`` on ``dev``; returns it
+    after ``run_with_restarts``, with the synchronised wall time of each
+    step (from one batch request to the next)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    stamps = []
+
+    def data_at(step):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        stamps.append(time.perf_counter())
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in stream.batch_at(step).items()}
+    injector = kw.pop("injector", None)
+    t = Trainer(lambda p, b: tf.loss_fn(p, b, cfg), params, data_at,
+                TrainerConfig(total_steps=total_steps, ckpt_dir=ckpt_dir,
+                              log_every=1, keep=1, **kw),
+                failure_injector=injector)
+    t.run_with_restarts()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    stamps.append(time.perf_counter())
+    t.step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    return t
+
+
+def param_gap(a, b, before) -> tuple[float, float]:
+    """(max |a - b| over every weight, the same over the largest update
+    |b - before|): two runs' weights after the same steps."""
+    from repro_torch.train.optimizer import tree_leaves
+    diff = max(float((x.cpu() - y.cpu()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    step = max(float((y.cpu() - z.cpu()).abs().max())
+               for y, z in zip(tree_leaves(b), tree_leaves(before)))
+    return diff, diff / step
+
+
+def loss_grads(cfg, params, batch) -> list:
+    """``loss_fn``'s gradients at ``params`` (``torch.autograd``), in
+    ``tree_leaves`` order."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    tracked = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, _ = tf.loss_fn(tracked, batch, cfg)
+    return list(torch.autograd.grad(loss, tree_leaves(tracked)))
+
+
+def one_step_gaps(cfg, p0, stream, dev, card, host) -> dict:
+    """The gaps between one optimizer step on ``dev`` (weights ``card``)
+    and on the CPU (``host``) from the same weights ``p0`` (CPU tensors)
+    and the stream's first batch: each gradient's
+    max |card - cpu| over its largest |cpu|, and the updated weights'
+    max |card - cpu|, over all and over those whose clipped gradient is at
+    least ``CONDITIONED`` x eps (``TRAIN_TOL``)."""
+    import torch
+    from repro_torch.train.optimizer import (AdamWConfig, global_norm,
+                                             tree_leaves, tree_map)
+    opt = AdamWConfig()
+    batch = {k: torch.as_tensor(v) for k, v in stream.batch_at(0).items()}
+    gc = loss_grads(cfg, tree_map(lambda x: x.to(dev), p0),
+                    {k: v.to(dev) for k, v in batch.items()})
+    gh = loss_grads(cfg, p0, batch)
+    grads = max(float((x.cpu() - y).abs().max()
+                      / y.abs().max().clamp_min(1e-30))
+                for x, y in zip(gc, gh))
+    clip = min(1.0, opt.grad_clip / (float(global_norm(gh)) + 1e-9))
+    out = {"grads": grads, "weights": 0.0, "all": 0.0, "n_loose": 0}
+    for x, y, g in zip(tree_leaves(card), tree_leaves(host), gh):
+        gap = (x.cpu() - y).abs()
+        held = g.abs() * clip >= CONDITIONED * opt.eps
+        out["all"] = max(out["all"], float(gap.max()))
+        if bool(held.any()):
+            out["weights"] = max(out["weights"], float(gap[held].max()))
+        out["n_loose"] += int((~held).sum())
+    return out
+
+
+def phase_train():
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.distributed.fault import FailureInjector
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    dev = torch.device(DEVICE)
+    cpu = torch.device("cpu")
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    ckpt = Path(tempfile.mkdtemp(dir=work))
+    try:
+        # (i) full widths and depth: bf16 activations, fp32 masters
+        cfg = configs.get(TRAIN_ARCH).config()
+        want = dict(n_layers=24, d_model=1024, n_heads=16, n_kv_heads=8,
+                    n_experts=32, top_k=8, d_ff=512, vocab=49155,
+                    tie_embeddings=True, attn_impl="chunked",
+                    dtype=torch.bfloat16)
+        got = {k: getattr(cfg, k) for k in want}
+        if got != want:
+            raise AssertionError(f"{TRAIN_ARCH}: {got}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = tf.init_params(torch.Generator(dev).manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        say(f"phase 6 (i): {cfg.name} {cfg.n_layers} layers d_model "
+            f"{cfg.d_model} {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+            f"{cfg.n_experts} experts top-{cfg.top_k} d_ff {cfg.d_ff}, "
+            f"{cfg.param_count() / 1e9:.3f} B fp32 params in "
+            f"{time.perf_counter() - t0:.2f} s (set-up)")
+        stream = TokenStream(vocab=cfg.vocab, batch=4, seq=512)
+        t = train_run(cfg, params, stream, dev, str(ckpt / "full"), 5,
+                      ckpt_every=0)
+        del params
+        losses = [m["loss"] for m in t.metrics]
+        if len(losses) != 5 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"Granite-MoE losses {losses}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        say(f"(i) Trainer, TokenStream batch 4 x seq 512, 5 steps: losses "
+            + ", ".join(f"{x:.6f}" for x in losses)
+            + "; ms per step (synchronised) "
+            + ", ".join(f"{s * 1e3:.3f}" for s in t.step_s)
+            + f"; peak device memory {peak:.3f} GiB")
+        del t
+        torch.cuda.empty_cache()
+
+        # (ii) Granite's widths at 2 layers, fp32: one step, card vs CPU
+        small = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+        p0 = tf.init_params(torch.Generator().manual_seed(0), small)
+        stream = TokenStream(vocab=small.vocab, batch=2, seq=128)
+        runs = []
+        for d in (dev, cpu):
+            t0 = time.perf_counter()
+            runs.append(train_run(
+                small, tree_map(lambda x, d=d: x.to(d), p0), stream, d,
+                str(ckpt / f"one_{d.type}"), 1, ckpt_every=0))
+            say(f"(ii) one step on the {d.type}: "
+                f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+        a, b = runs
+        la, lb = a.metrics[0]["loss"], b.metrics[0]["loss"]
+        gaps = one_step_gaps(small, p0, stream, dev, a.params, b.params)
+        n = sum(x.numel() for x in tree_leaves(p0))
+        scale = max(float(x.abs().max()) for x in tree_leaves(b.params))
+        say(f"(ii) 2 layers fp32, batch 2 x 128: loss card {la:.7f} cpu "
+            f"{lb:.7f} (gap {abs(la - lb) / abs(lb):.3g} relative, limit "
+            f"{TRAIN_TOL['loss']}); gradients max |card - cpu| "
+            f"{gaps['grads']:.3g} of their tensor's largest (limit "
+            f"{TRAIN_TOL['grads']}); updated weights max |card - cpu| "
+            f"{gaps['weights']:.3g} where the clipped gradient is >= "
+            f"{CONDITIONED:g} x eps (limit {TRAIN_TOL['weights']}), "
+            f"{gaps['all']:.3g} over all {n} ({gaps['all'] / scale:.3g} of "
+            f"the weights' scale; {gaps['n_loose']} weights have a smaller "
+            "gradient)")
+        if abs(la - lb) > TRAIN_TOL["loss"] * abs(lb) \
+                or gaps["grads"] > TRAIN_TOL["grads"] \
+                or gaps["weights"] > TRAIN_TOL["weights"]:
+            raise AssertionError("(ii) card and CPU steps disagree")
+        del runs, a, b
+
+        # (iii) failure at step 3, checkpoints every 2 steps, restarted
+        p_dev = tree_map(lambda x: x.to(dev), p0)
+        plain = train_run(small, p_dev, stream, dev, str(ckpt / "plain"), 5,
+                          ckpt_every=0)
+        t0 = time.perf_counter()
+        failed = train_run(small, p_dev, stream, dev, str(ckpt / "restart"),
+                           5, ckpt_every=2,
+                           injector=FailureInjector(fail_at=(3,)))
+        steps = [m["step"] for m in failed.metrics]
+        if steps != [0, 1, 2, 2, 3, 4] or failed.ckpt.latest_step() != 3:
+            raise AssertionError(f"(iii) steps run {steps}, latest "
+                                 f"checkpoint {failed.ckpt.latest_step()}")
+        diff, rel = param_gap(failed.params, plain.params, p_dev)
+        say(f"(iii) FailureInjector(fail_at=(3,)), ckpt_every 2, "
+            f"run_with_restarts: steps run {steps} in "
+            f"{(time.perf_counter() - t0) * 1e3:.3f} ms (checkpoint writes "
+            f"included); final weights max |restarted - uninterrupted| "
+            f"{diff:.3g} ({rel:.3g} of the largest update; limit "
+            f"{TRAIN_TOL['weights']})")
+        if diff > TRAIN_TOL["weights"]:
+            raise AssertionError("(iii) the restarted run ended elsewhere")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def flash_rows(cap, arch=None) -> list:
+    """The flash kernel's prefill and decode rows at a serving path's
+    captured calls; ``arch`` names the rows of a path other than phase
+    4's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import wrapper_module
@@ -1098,7 +1587,8 @@ def flash_rows(cap) -> list:
         splits = wrapper_module("flash_attention").num_splits(b, h, hk, sq,
                                                              skv)
         rows.append(report_row(
-            key, "flash_attention", cap.counts[key], err,
+            key if arch is None else f"{key}/{arch}", "flash_attention",
+            cap.counts[key], err,
             lambda: kernel(q, k, v, lens, **kw),
             lambda: flash_attention_ref(q, k, v, lens, **kw), bnd, library_ms,
             f"q {b}x{h}x{sq}x{dh} kv {b}x{hk}x{skv}x{dh} {dtype} lengths "
@@ -1155,7 +1645,10 @@ def main() -> int:
     phase_declarative(db)
     del db
     rows = kernel_report(launches, cap)
-    rows += flash_rows(phase_serve()) + [embedding_bag_row()]
+    rows += flash_rows(phase_serve())
+    rows += flash_rows(phase_moe_serve(), MOE_ARCH)
+    phase_train()
+    rows += [embedding_bag_row()]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

@@ -4,19 +4,23 @@
   * ``SHAPES``         — dict shape_name -> spec dict (the assigned cells)
   * ``FAMILY``         — "lm" | "db"
 
-Only the ported archs are listed: the three dense LMs and the paper's own
-``gredo`` workload config (``FAMILY = "db"``; ``all_cells`` skips it, as
-the JAX package's registry does). The MoE LMs (``olmoe_1b_7b``,
-``granite_moe_1b_a400m``), the GNNs and recsys come with the modules they
-need (ROADMAP, queue 1 item 10).
+Only the ported archs are listed, in the JAX package's order: the two MoE
+LMs and the three dense LMs, and the paper's own ``gredo`` workload
+config (``FAMILY = "db"``; ``all_cells`` skips it, as the JAX package's
+registry does). The GNNs and recsys come with the modules they need
+(ROADMAP, queue 1 items 10c and 10d).
 """
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ["starcoder2_3b", "qwen2_1_5b", "stablelm_3b",
-         # the paper's own workload
-         "gredo"]
+ARCHS = (
+    # LM family
+    "olmoe_1b_7b", "granite_moe_1b_a400m", "starcoder2_3b", "qwen2_1_5b",
+    "stablelm_3b",
+    # the paper's own workload
+    "gredo",
+)
 
 
 def get(arch: str):

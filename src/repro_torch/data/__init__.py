@@ -1,1 +1,2 @@
-"""Synthetic data: the M2Bench-style multi-model scenario."""
+"""Synthetic data: the M2Bench-style multi-model scenario and the LM token
+stream."""

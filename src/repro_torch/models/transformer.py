@@ -1,13 +1,13 @@
-"""Decoder-only LM transformer of the port: the dense serving subset (GQA,
-RoPE, optional QKV bias, RMSNorm or LayerNorm, SwiGLU or GELU MLP, tied or
-separate head).
+"""Decoder-only LM transformer of the port: dense and MoE (GQA, RoPE,
+optional QKV bias, RMSNorm or LayerNorm, SwiGLU or GELU MLP, tied or
+separate head), for serving and for training.
 
 Mirrors ``repro.models.transformer`` function for function, with PyTorch in
 place of JAX:
   * Parameters are stacked over layers, as in the reference, and the layer
     loop is a Python loop over the stacked tensors' first axis (the
-    reference's ``lax.scan``). ``remat`` has no effect: the serving path
-    takes no backward.
+    reference's ``lax.scan``). ``remat`` has no effect: autograd keeps
+    every layer's activations for the backward.
   * Attention is ``attn_impl``: "chunked" (the online-softmax double loop),
     "dense" (the oracle) or "flash" (the hand-written CUDA kernel on the
     card, its plain PyTorch version on the CPU).
@@ -18,15 +18,25 @@ place of JAX:
     weights in ``cfg.dtype`` instead of casting the fp32 masters anew.
   * A forward with a KV cache writes the new K/V into the cache in place
     and returns it (the reference returns an updated copy).
+  * MoE is the reference's sort-based top-k dispatch into (E, C) capacity
+    buffers, with its order and ties (a stable sort gives the lower
+    expert index first on equal router logits), computed without a
+    scatter: each buffer slot gathers its token, and each token sums its
+    k expert outputs in ascending expert order, the order of the
+    reference's sequential scatter-add, so the card gives the same
+    rounding on every run.
+  * ``loss_fn`` is the reference's sequence-chunked cross-entropy;
+    gradients come from ``torch.autograd`` (``train.loop``).
 
-Not ported yet: the MoE block (ROADMAP queue 1, item 10), the sharded
-decode attention and the mesh hooks (item 11), and ``loss_fn`` (training,
-item 10); each raises ``NotImplementedError``.
+Not ported yet: the sharded decode attention, the shard_map MoE and the
+mesh hooks (ROADMAP queue 1, item 11); each raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+import math
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -111,14 +121,15 @@ def _not_ported(what: str, item: int):
 
 
 def _check_ported(cfg: TransformerConfig) -> None:
-    if cfg.is_moe:
-        _moe_block(cfg)
+    if cfg.is_moe and cfg.moe_impl == "shard_map" and cfg.moe_ep_axis:
+        _moe_block_shard_map(cfg)
     if cfg.mesh is not None or cfg.kv_seq_shard or cfg.moe_ep_axis:
         _dist_decode_attention(cfg)
 
 
-def _moe_block(cfg: TransformerConfig):
-    _not_ported(f"the MoE block ({cfg.name}: {cfg.n_experts} experts)", 10)
+def _moe_block_shard_map(cfg: TransformerConfig):
+    _not_ported(f"the shard_map MoE block ({cfg.name}, expert axis "
+                f"{cfg.moe_ep_axis!r})", 11)
 
 
 def _dist_decode_attention(cfg: TransformerConfig):
@@ -165,10 +176,13 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig) -> Params:
     if cfg.norm == "layernorm":
         layer["ln1_b"] = const(0.0, L, d)
         layer["ln2_b"] = const(0.0, L, d)
-    layer["w_in"] = norm_init(L, d, f)
+    experts = (cfg.n_experts,) if cfg.is_moe else ()
+    if cfg.is_moe:
+        layer["router"] = norm_init(L, d, cfg.n_experts)
+    layer["w_in"] = norm_init(L, *experts, d, f)
     if cfg.mlp == "swiglu":
-        layer["w_gate"] = norm_init(L, d, f)
-    layer["w_out"] = norm_init(L, f, d, scale=f ** -0.5)
+        layer["w_gate"] = norm_init(L, *experts, d, f)
+    layer["w_out"] = norm_init(L, *experts, f, d, scale=f ** -0.5)
 
     params = {
         "embed": normal(v, d, scale=0.02),
@@ -193,10 +207,12 @@ def params_from_arrays(tree) -> Params:
 def cast_params(params: Params, cfg: TransformerConfig) -> Params:
     """The serving copy of fp32 parameters: every weight that the forward
     casts to ``cfg.dtype`` where it is used is cast here once; the norm
-    weights (``ln*``) stay fp32, as the forward uses them. The forward
-    gives bit-identical results on either copy."""
+    weights (``ln*``) and the MoE router stay fp32, as the forward uses
+    them (the router's logits, and so the routing, come from the fp32
+    master). The forward gives bit-identical results on either copy."""
     def cast(name, t):
-        return t if name.startswith("ln") else t.to(cfg.dtype)
+        return t if name.startswith("ln") or name == "router" \
+            else t.to(cfg.dtype)
     out = {k: cast(k, t) for k, t in params.items() if k != "layers"}
     out["layers"] = {k: cast(k, t) for k, t in params["layers"].items()}
     return out
@@ -325,6 +341,97 @@ def _write_cache(c, new, cache_lengths):
     c[rows, :, pos] = new.transpose(1, 2)       # indexed dims first: (B,S,Hk,dh)
 
 
+class Route(NamedTuple):
+    """Top-k routing of one MoE layer over groups of T tokens (the
+    reference's ``_moe_block`` up to its dispatch). Positions ``p`` index
+    the (G, T*k) assignments sorted by expert, stably."""
+    logits: torch.Tensor      # (G, T, E) fp32 router logits
+    idx: torch.Tensor         # (G, T, k) chosen experts, best first
+    capacity: int             # C: slots per expert and group
+    order: torch.Tensor       # (G, T*k) flat assignment (t*k + i) at p
+    sorted_e: torch.Tensor    # (G, T*k) expert at p
+    sorted_gate: torch.Tensor  # (G, T*k) gate at p, cfg.dtype
+    seg_start: torch.Tensor   # (G, E) first p of each expert
+    seg_end: torch.Tensor     # (G, E) one past its last p
+    pos: torch.Tensor         # (G, T*k) rank of p within its expert
+    keep: torch.Tensor        # (G, T*k) pos < capacity
+
+
+def _moe_route(x, router_w, cfg: TransformerConfig) -> Route:
+    """Route x (G, T, d): fp32 logits, then the top-k experts (lower
+    expert first on ties, as ``lax.top_k``)."""
+    logits = x.float() @ router_w.float()
+    idx = torch.sort(logits, stable=True, dim=-1, descending=True)[1]
+    return _route(logits, idx[..., :cfg.top_k], cfg)
+
+
+def _route(logits, idx, cfg: TransformerConfig) -> Route:
+    """The dispatch of the experts ``idx`` (G, T, k) chosen from the
+    router ``logits`` (G, T, E): gates (softmax over the chosen logits),
+    the stable sort by expert and the capacity cut."""
+    G, T, k = idx.shape
+    E = cfg.n_experts
+    C = max(int(math.ceil(T * k / E * cfg.capacity_factor)), 1)
+    gates = torch.softmax(logits.gather(-1, idx), -1).to(cfg.dtype)
+    flat_e = idx.reshape(G, T * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = flat_e.gather(-1, order)
+    experts = torch.arange(E, device=idx.device).expand(G, E).contiguous()
+    seg_start = torch.searchsorted(sorted_e, experts)
+    seg_end = torch.searchsorted(sorted_e, experts, right=True)
+    pos = (torch.arange(T * k, device=idx.device)[None]
+           - seg_start.gather(-1, sorted_e))
+    return Route(logits, idx, C, order, sorted_e,
+                 gates.reshape(G, T * k).gather(-1, order), seg_start,
+                 seg_end, pos, pos < C)
+
+
+def _moe_block(x, router_w, w_in, w_gate, w_out, cfg: TransformerConfig):
+    """Sort-based top-k MoE over x (G, T, d); returns ((G, T, d), aux).
+    Dispatch: buffer slot (e, c) holds the token at sorted position
+    seg_start[e] + c when c < the expert's count, else zeros (the
+    reference's scatter of the kept rows). Combine: each token's k expert
+    outputs times their gates, summed in ascending expert order in
+    ``cfg.dtype``."""
+    G, T, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    r = _moe_route(x, router_w, cfg)
+    C, dt, dev = r.capacity, cfg.dtype, x.device
+
+    c = torch.arange(C, device=dev)
+    src = r.seg_start[..., None] + c                           # (G, E, C)
+    filled = c < (r.seg_end - r.seg_start)[..., None]
+    src = torch.where(filled, src, 0).reshape(G, E * C)
+    tok = (r.order.gather(-1, src) // k)                       # (G, E*C)
+    rows = torch.arange(G, device=dev)[:, None]
+    xe = torch.where(filled.reshape(G, E * C, 1), x[rows, tok], 0)
+    xe = xe.reshape(G, E, C, d)
+
+    h = xe @ w_in.to(dt)                                       # (G, E, C, f)
+    if w_gate is not None:
+        h = F.silu(xe @ w_gate.to(dt)) * h
+    else:
+        h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
+    ye = (h @ w_out.to(dt)).reshape(G, E * C, d)
+
+    # position of each flat assignment in the sorted order; a token's k
+    # positions, ascending, are its experts in ascending order
+    at = torch.empty_like(r.order).scatter_(
+        -1, r.order, torch.arange(T * k, device=dev).expand(G, T * k))
+    at = at.reshape(G, T, k).sort(-1).values.reshape(G, T * k)
+    slot = torch.where(r.keep, r.sorted_e * C + r.pos, 0).gather(-1, at)
+    gate = torch.where(r.keep, r.sorted_gate, 0).gather(-1, at)
+    parts = (ye[rows, slot] * gate[..., None]).reshape(G, T, k, d)
+    out = parts[:, :, 0]
+    for i in range(1, k):
+        out = out + parts[:, :, i]
+    # load-balancing auxiliary loss (Switch): E * sum(fraction * prob)
+    first = r.idx[..., :1] == torch.arange(E, device=dev)
+    me = first.float().mean((0, 1))
+    ce = torch.softmax(r.logits, -1).mean((0, 1))
+    return out, E * (me * ce).sum()
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -336,16 +443,26 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, *,
             cache_lengths: Optional[torch.Tensor] = None,
             return_hidden: bool = False):
     """tokens: (B, S). Training/prefill: cache=None, returns (logits,
-    aux_loss). Decode: pass ``cache`` {k,v: (L, B, Hk, S_max, dh)} and
-    ``cache_lengths`` (B,) = tokens already in cache; the new K/V are
-    written into ``cache`` in place and (logits, cache) returned.
+    aux_loss), aux_loss the layer mean of the MoE load-balancing loss (0
+    for a dense model). Decode: pass ``cache`` {k,v: (L, B, Hk, S_max,
+    dh)} and ``cache_lengths`` (B,) = tokens already in cache; the new K/V
+    are written into ``cache`` in place and (logits, cache) returned.
+
+    An MoE layer routes the B*S tokens in ``min(moe_groups, B)`` groups,
+    with the capacity of each group's expert taken from its token count,
+    so the rows of a batch share capacity (a decode step routes every
+    slot's token together), as in the reference.
+
+    ``attn_window`` masks the dense and chunked attention; the flash
+    kernel takes no window and attends to the whole causal prefix, as the
+    reference's flash path does.
 
     Token ids must lie in [0, vocab): the embedding gather raises on
     others, where the reference's ``jnp.take`` does not (greedy ids are
     always in range)."""
     _check_ported(cfg)
     B, S = tokens.shape
-    h, dh = cfg.n_heads, cfg.head_dim
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
     dev = tokens.device
     dt = cfg.dtype
     x = params["embed"][tokens].to(dt)
@@ -360,6 +477,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, *,
         total_lengths = lengths
 
     layers = params["layers"]
+    auxes = []
     for li in range(cfg.n_layers):
         lp = {name: t[li] for name, t in layers.items()}
 
@@ -398,15 +516,24 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, *,
         x = x + o @ lp["wo"].to(dt)
 
         xm = _norm(x, lp["ln2"], lp.get("ln2_b"))
-        hmid = xm @ lp["w_in"].to(dt)
-        if cfg.mlp == "swiglu":
-            hmid = F.silu(xm @ lp["w_gate"].to(dt)) * hmid
+        if cfg.is_moe:
+            G = max(1, min(cfg.moe_groups, B))
+            y, aux = _moe_block(xm.reshape(G, B * S // G, d), lp["router"],
+                                lp["w_in"], lp.get("w_gate"), lp["w_out"],
+                                cfg)
+            auxes.append(aux)
+            x = x + y.reshape(B, S, d)
         else:
-            hmid = F.gelu(hmid, approximate="tanh")   # jax.nn.gelu's default
-        x = x + hmid @ lp["w_out"].to(dt)
+            hmid = xm @ lp["w_in"].to(dt)
+            if cfg.mlp == "swiglu":
+                hmid = F.silu(xm @ lp["w_gate"].to(dt)) * hmid
+            else:
+                hmid = F.gelu(hmid, approximate="tanh")  # jax.nn.gelu's
+            x = x + hmid @ lp["w_out"].to(dt)
 
     x = _norm(x, params["ln_f"])
-    aux_loss = torch.zeros((), dtype=torch.float32, device=dev)
+    aux_loss = (torch.stack(auxes).mean() if auxes else
+                torch.zeros((), dtype=torch.float32, device=dev))
     if return_hidden:
         return x, aux_loss
     head = params.get("head")
@@ -424,7 +551,31 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, *,
 
 
 def loss_fn(params, batch, cfg: TransformerConfig):
-    _not_ported("loss_fn (training)", 10)
+    """Cross-entropy over ``batch`` {"tokens", "labels": (B, S)}, labels
+    -1 masked, with the logits made and reduced ``ce_chunk`` positions at
+    a time so the full (B, S, V) block never exists at once. Returns
+    (nll + 0.01 * aux, nll)."""
+    hidden, aux = forward(params, batch["tokens"], cfg, return_hidden=True)
+    labels = batch["labels"]
+    S = labels.shape[1]
+    head = params.get("head")
+    if head is None:
+        head = params["embed"].T
+    head = head.to(cfg.dtype)
+
+    c = min(cfg.ce_chunk, S)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s0 in range(0, S, c):
+        lab = labels[:, s0:s0 + c].long()
+        logits = (hidden[:, s0:s0 + c] @ head).float()
+        logz = torch.logsumexp(logits, -1)
+        gold = logits.gather(-1, lab.clamp_min(0)[..., None])[..., 0]
+        mask = (lab >= 0).float()
+        tot = tot + ((logz - gold) * mask).sum()
+        cnt = cnt + mask.sum()
+    nll = tot / cnt.clamp_min(1)
+    return nll + 0.01 * aux, nll
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,

@@ -286,6 +286,8 @@ def test_batched_hop_kernel_replays_in_a_cuda_graph(cuda):
     (2, 12, 2, 130, 130, True, 128, torch.bfloat16),  # Qwen2 GQA prefill
     (3, 12, 2, 1, 300, True, 128, torch.bfloat16),    # Qwen2 GQA decode
     (2, 8, 8, 70, 70, True, 80, torch.bfloat16),      # StableLM head dim
+    (2, 16, 16, 130, 130, True, 128, torch.bfloat16),  # OLMoE MHA prefill
+    (3, 16, 16, 1, 300, True, 128, torch.bfloat16),    # OLMoE MHA decode
 ])
 def test_flash_kernel_matches_plain(cuda, b, h, hk, sq, skv, causal, dh,
                                     dtype):
@@ -479,7 +481,8 @@ def test_engine_on_card_matches_cpu_and_launches_every_kernel(cuda):
 
 
 @pytest.mark.parametrize("arch", ["qwen2_1_5b", "stablelm_3b",
-                                  "starcoder2_3b"])
+                                  "starcoder2_3b", "olmoe_1b_7b",
+                                  "granite_moe_1b_a400m"])
 def test_smoke_lm_on_card_matches_cpu(cuda, arch):
     """The smoke-size model, same fp32 weights: the card (flash kernel)
     against the CPU (plain versions), a full forward and a cached prefill +
@@ -495,10 +498,11 @@ def test_smoke_lm_on_card_matches_cpu(cuda, arch):
     gpu["layers"] = {k: v.to(cuda) for k, v in cpu["layers"].items()}
     toks = torch.as_tensor(RNG.integers(0, cfg.vocab, (3, 40)))
     before = launch_counts()["flash_attention"]
-    got, _ = tf.forward(gpu, toks.to(cuda), cfg)
+    got, aux = tf.forward(gpu, toks.to(cuda), cfg)
     assert launch_counts()["flash_attention"] == before + cfg.n_layers
-    torch.testing.assert_close(got.cpu(), tf.forward(cpu, toks, cfg)[0],
-                               rtol=3e-4, atol=3e-5)
+    want, want_aux = tf.forward(cpu, toks, cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=3e-4, atol=3e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)
     lens = torch.zeros(3, dtype=torch.int32)
     c_cpu, c_gpu = tf.init_cache(cfg, 3, 64), tf.init_cache(cfg, 3, 64, cuda)
     want, c_cpu = tf.forward(cpu, toks, cfg, cache=c_cpu, cache_lengths=lens)
@@ -518,3 +522,69 @@ def test_smoke_lm_on_card_matches_cpu(cuda, arch):
         [Request(rid=i, prompt=pr, max_new=m) for i, pr, m in reqs])
         for p in (cpu, gpu)]
     assert [c.tokens for c in outs[0]] == [c.tokens for c in outs[1]]
+
+
+def test_moe_routing_ties_on_card(cuda):
+    """Equal router logits on the card: the lower expert first (the
+    stable sort), the same routing and capacity cut as on the CPU."""
+    from repro_torch.models import transformer as tf
+    cfg = tf.TransformerConfig(n_layers=1, d_model=32, n_heads=2,
+                               n_kv_heads=2, d_ff=32, vocab=64, n_experts=8,
+                               top_k=2, capacity_factor=1.0,
+                               dtype=torch.float32)
+    router = torch.as_tensor(RNG.standard_normal((32, 8)),
+                             dtype=torch.float32)
+    router[:, 1::2] = router[:, 0::2]
+    x = torch.as_tensor(RNG.standard_normal((2, 96, 32)), dtype=torch.float32)
+    x[:, :16] = 0.0                     # 16 tokens tie across all experts
+    want = tf._moe_route(x, router, cfg)
+    got = tf._moe_route(x.to(cuda), router.to(cuda), cfg)
+    for name in ("idx", "order", "sorted_e", "keep"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            name
+    assert bool((~want.keep).any())
+
+
+def test_trainer_step_on_card_matches_cpu(cuda, tmp_path):
+    """One Trainer step of the Granite-MoE smoke config in fp32 (TF32 off)
+    from the same weights and batch on the card and on the CPU: the loss
+    within 1e-5 (relative), each gradient within 1e-4 of its tensor's
+    largest, and the updated weights within 1e-4 (a third of one step at
+    lr 3e-4) wherever the clipped gradient is at least 100 x AdamW's eps;
+    nearer eps a first step multiplies the gradients' last-bit difference
+    by lr / eps (``chip_smoke.py``'s limits)."""
+    from repro_torch import configs
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import (AdamWConfig, global_norm,
+                                             tree_leaves, tree_map)
+    cfg = dataclasses.replace(configs.get("granite_moe_1b_a400m")
+                              .smoke_config(), dtype=torch.float32)
+    stream = TokenStream(vocab=cfg.vocab, batch=4, seq=32)
+    p0 = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    runs, grads = {}, {}
+    for dev in (torch.device("cpu"), cuda):
+        params = tree_map(lambda t, dev=dev: t.to(dev), p0)
+        data = lambda s, dev=dev: {k: torch.as_tensor(v, device=dev)  # noqa
+                                   for k, v in stream.batch_at(s).items()}
+        tracked = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss, _ = tf.loss_fn(tracked, data(0), cfg)
+        grads[dev.type] = torch.autograd.grad(loss, tree_leaves(tracked))
+        t = Trainer(lambda p, b: tf.loss_fn(p, b, cfg), params, data,
+                    TrainerConfig(total_steps=1, ckpt_every=0, log_every=1,
+                                  ckpt_dir=str(tmp_path / dev.type)))
+        t.run(resume=False)
+        assert all(p.device.type == dev.type for p in tree_leaves(t.params))
+        runs[dev.type] = t
+    a, b = runs["cuda"], runs["cpu"]
+    assert abs(a.metrics[0]["loss"] - b.metrics[0]["loss"]) <= \
+        1e-5 * abs(b.metrics[0]["loss"])
+    opt = AdamWConfig()
+    clip = min(1.0, opt.grad_clip / (float(global_norm(grads["cpu"])) + 1e-9))
+    for p, q, gc, g in zip(tree_leaves(a.params), tree_leaves(b.params),
+                           grads["cuda"], grads["cpu"]):
+        assert float((gc.cpu() - g).abs().max()) <= 1e-4 * float(
+            g.abs().max())
+        held = g.abs() * clip >= 100 * opt.eps
+        torch.testing.assert_close(p.cpu()[held], q[held], rtol=0, atol=1e-4)

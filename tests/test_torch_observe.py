@@ -13,7 +13,12 @@ import numpy as np
 import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
-from torch_twin import PKGS, PORT, REF, both
+from torch_twin import PKGS, PORT, REF, both, fresh_matcher_counters
+
+
+@pytest.fixture(autouse=True)
+def _fresh_matcher_counters(monkeypatch):
+    fresh_matcher_counters(monkeypatch)
 
 
 @pytest.fixture(scope="module")

@@ -8,7 +8,12 @@ import time
 
 import numpy as np
 import pytest
-from torch_twin import PKGS, PORT, both, untimed
+from torch_twin import PKGS, PORT, both, fresh_matcher_counters, untimed
+
+
+@pytest.fixture(autouse=True)
+def _fresh_matcher_counters(monkeypatch):
+    fresh_matcher_counters(monkeypatch)
 
 
 @pytest.fixture(scope="module")

@@ -88,6 +88,16 @@ _TIMES = re.compile(r"\b(ms|pct|seconds|\w*_s|\w*_ms)=[-+\d.e]+%?,? ?")
 _PROCESS_WIDE = ("kernel_retries:", "traversal_kernels")
 
 
+def fresh_matcher_counters(monkeypatch) -> None:
+    """Give each package's device matcher fresh counters for one test: they
+    are process-wide and feed the ``kernel_retries`` health rule, so a
+    health check would otherwise depend on the device matches (and
+    overflow retries) that earlier tests in the process ran."""
+    for P in (REF, PORT):
+        monkeypatch.setattr(P.pattern_jit, "COUNTERS",
+                            P.pattern_jit._Counters())
+
+
 def untimed(text: str) -> str:
     """Explain/trace text without its wall-clock fields (``ms=``, ``pct=``,
     ``*_s=`` and ``*_ms=`` counters such as ``queue_wait_s``) and without
