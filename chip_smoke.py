@@ -76,12 +76,45 @@ Phases (each raises on failure; the script then exits non-zero):
      gradients, updated weights), and a run failed at step 3 (checkpoints
      every 2 steps) and restarted against an uninterrupted one
      (``TRAIN_TOL``);
-  7. one JSON line listing the kernels, logreg_grad once at A1's shape and
+  7. the recommender: Wide & Deep at its published widths (40 fields x
+     1M rows x 32, wide hash 1M, MLP 1293-1024-512-256, tower 256;
+     1,283,046,976 fp32 parameters from ``torch.Generator(seed 0)`` on the
+     card) through its four SHAPES: ``serve_p99`` (batch 512, ms per
+     call; scores against the CPU from the same weights within rtol 1e-5
+     / atol 1e-6), ``serve_bulk`` (batch 262144, rows/s; ``_hash_cross``
+     on the card equal bit for bit to numpy uint32), ``retrieval_cand`` (1
+     query against 1M candidates of 256, top-100; the ids equal to the
+     CPU's as sets except for scores within 1e-6 of the 100th) and
+     ``train_batch`` (batch 65536, 5 AdamW steps, dense table gradients:
+     ms per step, losses), each with its peak memory; then one AdamW step
+     at full widths with vocab_per_field and wide_hash cut to 100k, batch
+     4096, card against CPU (``TRAIN_TOL``);
+  8. the GNNs at their published widths: (a) GatedGCN (16 layers, d 70)
+     and PNA (4 layers, d 75) on ``minibatch_lg`` (a synthetic graph at
+     Reddit's size on the host, 232,965 nodes and 114,615,892 edges, 602
+     features, 41 classes; ``NeighborSampler`` fanout (15, 10) over 1024
+     seeds), 5 AdamW steps each (sampler ms apart from step ms, peak
+     memory), and the first batch card vs CPU (``GNN_TOL``); (b) GatedGCN,
+     PNA and GAT (v2, its defaults) on ``full_graph_sm``, one AdamW step
+     each, card vs CPU (``TRAIN_TOL``); (c) MACE (2 layers, 128 channels,
+     l_max 2, correlation 3) and EquiformerV2 (12 layers, 128 channels,
+     l_max 6, m_max 2, 8 heads) on ``molecule`` (128 graphs of 30 nodes
+     and 64 edges), 5 AdamW steps each, rotation invariance on the card
+     (MACE also translation), and card vs CPU on the first 8 graphs; (d)
+     DCN-v2 at its defaults, batch 4096, one AdamW step card vs CPU. PNA's
+     card vs CPU checks are held in float64 (its std aggregator is
+     ill-conditioned in fp32 where a node's messages are all equal) and
+     printed in fp32, and every cell's gradients and updated weights are
+     held in float64 (a ReLU kink flips on rounding in fp32), its loss in
+     fp32. A profiler window follows serve_bulk and each cell's AdamW
+     steps. Phases 7 and 8 print the launch counters before and after: no
+     kernel of the repo is on these paths;
+  9. one JSON line listing the kernels, logreg_grad once at A1's shape and
      once at a_shard_reg's, flash at phase 4's and phase 5's calls
      (launches, max error, times: CUDA events over back-to-back calls, the
      host's issue time, and the device time and the number of device
      operations per call from the profiler; bound);
-  8. the result line ``{"ok": true, "device": {...}}``.
+  10. the result line ``{"ok": true, "device": {...}}``.
 
 Nothing of JAX or of the JAX package is imported. Without a CUDA device,
 or without the rest of the repository beside it, the script fails before
@@ -90,6 +123,7 @@ it prints a result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -133,6 +167,24 @@ TRAIN_ARCH = "granite-moe-1b-a400m"
 # gradient of the wrong sign moves a weight by two steps.
 TRAIN_TOL = {"loss": 1e-5, "grads": 1e-4, "weights": 1e-4}
 CONDITIONED = 100.0      # x AdamW's eps: the weights held to TRAIN_TOL
+# Wide & Deep at its published widths (configs/wide_deep.config()): 40 x
+# 1M x 32 tables, a 1M wide table, MLP 1293-1024-512-256, tower 256.
+WIDE_DEEP_PARAMS = 1_283_046_976
+# serve_step's scores, card vs CPU from the same fp32 weights (TF32 off)
+RECSYS_SERVE_TOL = (1e-5, 1e-6)
+# The training check runs one AdamW step on the CPU too: at full widths
+# but with vocab_per_field and wide_hash cut to 100k rows (the CPU step at
+# 1M rows x 40 tables takes minutes), batch 4096.
+RECSYS_CUT, RECSYS_CUT_BATCH = 100_000, 4096
+# GNNs, card vs CPU (fp32, TF32 off; scatter-adds on the card sum in no
+# fixed order) and invariance on the card: outputs (logits, energies)
+# within 1e-4 of their scale, the loss within 1e-4 (relative), each
+# gradient within 1e-4 of its tensor's largest.
+GNN_TOL = {"out": 1e-4, "loss": 1e-4, "grads": 1e-4}
+# EquiformerV2's backward on the CPU at 128 graphs takes minutes: the card
+# vs CPU check of the molecule cell runs on the batch's first 8 graphs.
+MOLECULE_CHECK_GRAPHS = 8
+DCN_BATCH = 4096
 GCDIA_KERNELS = ("matmul", "cosine_sim", "logreg_grad", "batched_hop")
 # a_shard_reg regresses on four feature columns (m2bench.a_shard_reg)
 SHARD_FEATURES = 4
@@ -1549,6 +1601,565 @@ def phase_train():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phases 7-8: the recommenders and the GNNs at their published widths
+# ---------------------------------------------------------------------------
+
+
+def sync() -> None:
+    import torch
+    torch.cuda.synchronize()
+
+
+def reset_peak() -> None:
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib() -> float:
+    import torch
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def moved(x, dev):
+    """Tensors, dicts, lists and graph batches (``GraphBatch.to``) on
+    ``dev``; anything else as it is."""
+    import torch
+    from repro_torch.models.gnn.common import GraphBatch
+    if isinstance(x, GraphBatch) or torch.is_tensor(x):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: moved(v, dev) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(moved(v, dev) for v in x)
+    return x
+
+
+def as_f64(x):
+    """A tree's floating tensors in float64, integer ones as they are; a
+    graph batch's features and positions in float64 (its masks fp32)."""
+    import dataclasses
+    import torch
+    from repro_torch.models.gnn.common import GraphBatch
+    if isinstance(x, GraphBatch):
+        return dataclasses.replace(x, **{
+            f: getattr(x, f).double() for f in ("x", "pos", "edge_attr")
+            if getattr(x, f) is not None})
+    if torch.is_tensor(x):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, dict):
+        return {k: as_f64(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(as_f64(v) for v in x)
+    return x
+
+
+def grad_gap(a, b) -> float:
+    """max over the tensors of max |a - b| over the largest |b| of the
+    tensor; a linear layer's bias (``b`` beside ``w``) over the largest of
+    its own and its weight's: a bias whose gradient is zero in exact
+    arithmetic (an attention MLP's last bias under the edge softmax, which
+    is shift-invariant) has rounding alone, on either device."""
+    import torch
+
+    def walk(x, y):
+        if torch.is_tensor(y):
+            yield float((x.cpu() - y).abs().max()), float(y.abs().max())
+        elif isinstance(y, dict):
+            for k in sorted(y):
+                for gap, scale in walk(x[k], y[k]):
+                    if k == "b" and "w" in y:
+                        scale = max(scale, float(y["w"].abs().max()))
+                    yield gap, scale
+        elif y is not None:
+            for u, v in zip(x, y):
+                yield from walk(u, v)
+    return max((gap / max(scale, 1e-30) for gap, scale in walk(a, b)),
+               default=0.0)
+
+
+def out_gap(a, b) -> float:
+    """max |a - b| over max |b| (b on the CPU)."""
+    return float((a.detach().cpu() - b.detach()).abs().max()) / max(
+        float(b.detach().abs().max()), 1e-30)
+
+
+def card_vs_cpu(loss, p0, args, dev, step=True) -> dict:
+    """``loss(params, *args)`` and its gradients (``train.loop.
+    value_and_grad``) on ``dev`` and on the CPU from the same weights
+    ``p0`` and inputs ``args`` (CPU); with ``step``, one AdamW step on
+    each: the loss gap (relative), the gradients' gap (``grad_gap``) and
+    the updated weights' max |card - cpu| over all and over those whose
+    clipped gradient is at least ``CONDITIONED`` x eps (``TRAIN_TOL``)."""
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             adamw_update, global_norm,
+                                             tree_leaves)
+    pd = moved(p0, dev)
+    lc, gc = value_and_grad(loss, pd, *moved(args, dev))
+    lh, gh = value_and_grad(loss, p0, *args)
+    out = {"loss_card": float(lc), "loss_cpu": float(lh),
+           "loss": abs(float(lc) - float(lh)) / max(abs(float(lh)), 1e-30),
+           "grads": grad_gap(gc, gh), "weights": 0.0, "all": 0.0,
+           "n_loose": 0}
+    if not step:
+        return out
+    opt = AdamWConfig()
+    pc, _ = adamw_update(gc, adamw_init(pd), pd, opt)
+    ph, _ = adamw_update(gh, adamw_init(p0), p0, opt)
+    clip = min(1.0, opt.grad_clip / (float(global_norm(gh)) + 1e-9))
+    for x, y, g in zip(tree_leaves(pc), tree_leaves(ph), tree_leaves(gh)):
+        gap = (x.cpu() - y).abs()
+        held = g.abs() * clip >= CONDITIONED * opt.eps
+        out["all"] = max(out["all"], float(gap.max()))
+        if bool(held.any()):
+            out["weights"] = max(out["weights"], float(gap[held].max()))
+        out["n_loose"] += int((~held).sum())
+    return out
+
+
+def check_card_vs_cpu(label, loss, p0, args, dev, tol=TRAIN_TOL,
+                      step=True, held32=True) -> None:
+    """``card_vs_cpu`` in fp32 and in float64 (``as_f64`` of the weights
+    and inputs), both printed. Held: the loss in fp32 (in float64 where
+    ``held32`` is False: a model ill-conditioned in fp32), the gradients
+    and, with ``step``, the updated weights in float64. In fp32 a
+    pre-activation within rounding of a ReLU's kink takes the other
+    branch on one device, and that sample's whole term of a gradient sum
+    differs (at Wide & Deep's batch 4096, 7.58e-03 of a tensor's largest);
+    float64 leaves no kink that close, and shows whether the two devices
+    compute the same function."""
+    runs = {"fp32": card_vs_cpu(loss, p0, args, dev, step),
+            "float64": card_vs_cpu(loss, as_f64(p0), as_f64(args), dev,
+                                   step)}
+    for kind, g in runs.items():
+        say(f"{label}, {kind}: loss card {g['loss_card']:.7f} cpu "
+            f"{g['loss_cpu']:.7f} (gap {g['loss']:.3g} relative); gradients "
+            f"{g['grads']:.3g} of their tensor's largest"
+            + (f"; updated weights {g['weights']:.3g} where the clipped "
+               f"gradient is >= {CONDITIONED:g} x eps, {g['all']:.3g} over "
+               f"all ({g['n_loose']} weights have a smaller gradient)"
+               if step else ""))
+    held = runs["fp32" if held32 else "float64"]
+    g64 = runs["float64"]
+    say(f"{label}: held loss ({'fp32' if held32 else 'float64'}) "
+        f"{held['loss']:.3g} (limit {tol['loss']}), gradients (float64) "
+        f"{g64['grads']:.3g} (limit {tol['grads']})"
+        + (f", weights (float64) {g64['weights']:.3g} (limit "
+           f"{tol['weights']})" if step else ""))
+    if held["loss"] > tol["loss"] or g64["grads"] > tol["grads"] \
+            or (step and g64["weights"] > tol["weights"]):
+        raise AssertionError(f"{label}: card and CPU disagree")
+
+
+def adamw_steps(loss, params, batches, profile) -> tuple[list, list, object]:
+    """AdamW steps of ``loss`` over ``batches`` (callables giving each
+    step's arguments, timed apart): the losses, the synchronised ms per
+    step, and the final weights. Then ``profile_window`` of one more step
+    on the last arguments, its result dropped, printed as ``profile``."""
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             adamw_update)
+    opt_cfg, state = AdamWConfig(), adamw_init(params)
+    losses, ms = [], []
+    for args in batches:
+        args = args()
+        sync()
+        t0 = time.perf_counter()
+        lval, grads = value_and_grad(loss, params, *args)
+        params, state = adamw_update(grads, state, params, opt_cfg)
+        del grads
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(lval))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses {losses}")
+    profile_window(profile, lambda: adamw_update(
+        value_and_grad(loss, params, *args)[1], state, params, opt_cfg))
+    return losses, ms, params
+
+
+def timed_ms(fn, reps) -> float:
+    """Mean synchronised wall ms of ``fn()`` over ``reps`` calls after
+    one warm-up call."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def hash_cross_np(sparse, wide_hash: int):
+    """The Wide & Deep cross hash in numpy uint32 (wrapping) arithmetic:
+    ``(a * 2654435761) ^ (b + 0x9E3779B9 + (a << 6) + (a >> 2))``
+    modulo ``wide_hash``, as int32."""
+    import numpy as np
+    a = sparse[:, :-1].astype(np.uint32)
+    b = sparse[:, 1:].astype(np.uint32)
+    with np.errstate(over="ignore"):
+        h = (a * np.uint32(2654435761)) ^ (
+            b + np.uint32(0x9E3779B9) + (a << np.uint32(6))
+            + (a >> np.uint32(2)))
+    return (h % np.uint32(wide_hash)).astype(np.int32)
+
+
+def phase_recsys():
+    """Phase 7: Wide & Deep at its published widths, its four SHAPES."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import recsys
+    from repro_torch.train.optimizer import tree_leaves
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    cpu = torch.device("cpu")
+    say(f"phase 7 launch counts before: {launch_counts()}")
+    mod = configs.get("wide_deep")
+    cfg, shapes = mod.config(), mod.SHAPES
+    loss = lambda p, b: recsys.loss_fn(p, b, cfg)  # noqa: E731
+    reset_peak()
+    t0 = time.perf_counter()
+    params = recsys.init_params(torch.Generator(dev).manual_seed(0), cfg)
+    sync()
+    n = sum(t.numel() for t in tree_leaves(params))
+    say(f"phase 7: {cfg.name} {cfg.n_sparse} fields x "
+        f"{cfg.vocab_per_field} rows x {cfg.embed_dim}, wide hash "
+        f"{cfg.wide_hash}, MLP {cfg.n_sparse * cfg.embed_dim + cfg.n_dense}-"
+        + "-".join(map(str, cfg.mlp)) + f", tower {cfg.tower_dim}: {n} fp32 "
+        f"parameters ({n * 4 / 1e9:.3f} GB) in "
+        f"{time.perf_counter() - t0:.2f} s (set-up)")
+    if n != WIDE_DEEP_PARAMS:
+        raise AssertionError(f"Wide & Deep has {n} parameters")
+    t0 = time.perf_counter()
+    host = moved(params, cpu)
+    say(f"(copy of the weights to the host for the checks: "
+        f"{time.perf_counter() - t0:.2f} s)")
+
+    # serve_p99: batch 512, scores against the CPU
+    B = shapes["serve_p99"]["batch"]
+    b = recsys.random_batch(cfg, B, seed=1, device=dev)
+    reset_peak()
+    with torch.no_grad():
+        run = lambda: recsys.serve_step(params, b["dense"], b["sparse"],  # noqa
+                                        cfg)
+        ms = timed_ms(run, 20)
+        got = run().cpu()
+        want = recsys.serve_step(host, b["dense"].cpu(), b["sparse"].cpu(),
+                                 cfg)
+    err = assert_close("serve_p99 scores (card vs cpu)", got, want,
+                       *RECSYS_SERVE_TOL)
+    say(f"(serve_p99) serve_step batch {B}: {ms:.3f} ms per call; max "
+        f"|card - cpu| {err:.3g} (rtol {RECSYS_SERVE_TOL[0]}, atol "
+        f"{RECSYS_SERVE_TOL[1]}); peak {peak_gib():.3f} GiB")
+
+    # serve_bulk: batch 262144, rows/s; the cross hash bit for bit
+    B = shapes["serve_bulk"]["batch"]
+    b = recsys.random_batch(cfg, B, seed=2, device=dev)
+    reset_peak()
+    with torch.no_grad():
+        run = lambda: recsys.serve_step(params, b["dense"],  # noqa: E731
+                                        b["sparse"], cfg)
+        ms = timed_ms(run, 5)
+        say(f"(serve_bulk) serve_step batch {B}: {ms:.3f} ms per call, "
+            f"{B / ms * 1e3:.1f} rows/s; peak {peak_gib():.3f} GiB")
+        profile_window(f"(serve_bulk) serve_step batch {B}", run)
+    sparse = b["sparse"].cpu().numpy()
+    edge = np.array([[0, 2**31 - 1, -1, -2**31, 123456789, 2**31 - 2]
+                     * (cfg.n_sparse // 6 + 1)], np.int64)[:, :cfg.n_sparse]
+    sparse = np.concatenate([sparse, edge.astype(np.int32)])
+    ids = recsys._hash_cross(torch.as_tensor(sparse, device=dev),
+                             cfg.wide_hash).cpu().numpy()
+    want = hash_cross_np(sparse, cfg.wide_hash)
+    if ids.dtype != want.dtype or not np.array_equal(ids, want):
+        raise AssertionError("_hash_cross on the card differs from numpy "
+                             "uint32")
+    say(f"(serve_bulk) _hash_cross of {sparse.shape[0]} x "
+        f"{sparse.shape[1] - 1} crosses (the batch and ids near 2**31 and "
+        "negative) equal bit for bit to numpy uint32")
+    del b
+
+    # retrieval_cand: 1 query against 1M candidates, top-100
+    spec = shapes["retrieval_cand"]
+    b = recsys.random_batch(cfg, spec["batch"], seed=3, device=dev)
+    cands = torch.randn((spec["n_candidates"], cfg.tower_dim),
+                        generator=torch.Generator(dev).manual_seed(1),
+                        device=dev)
+    reset_peak()
+    k = 100
+    with torch.no_grad():
+        run = lambda: recsys.retrieval_step(  # noqa: E731
+            params, b["dense"], b["sparse"], cands, cfg, top_k=k)
+        ms = timed_ms(run, 10)
+        vals, idx = run()
+        hv, hi = recsys.retrieval_step(host, b["dense"].cpu(),
+                                       b["sparse"].cpu(), cands.cpu(), cfg,
+                                       top_k=spec["n_candidates"])
+    kth = float(hv[0, k - 1])
+    score = dict(zip(hi[0].tolist(), hv[0].tolist()))
+    differ = set(idx[0].tolist()) ^ set(hi[0, :k].tolist())
+    far = [i for i in differ if abs(score[i] - kth) > 1e-6]
+    say(f"(retrieval_cand) retrieval_step 1 query x {spec['n_candidates']} "
+        f"candidates x {cfg.tower_dim}, top-{k}: {ms:.3f} ms per call; top-"
+        f"{k} ids card vs cpu: {len(differ)} differ, {len(far)} of them "
+        f"farther than 1e-6 from the {k}th score {kth:.7f}; max |score "
+        f"card - cpu| {float((vals.cpu() - hv[:, :k]).abs().max()):.3g}; "
+        f"peak {peak_gib():.3f} GiB")
+    if far:
+        raise AssertionError(f"retrieval top-{k} differs: {sorted(far)}")
+    del b, cands, host
+
+    # train_batch: batch 65536, 5 AdamW steps from the same weights, drawn
+    # anew so that only the steps hold a copy
+    del params
+    B = shapes["train_batch"]["batch"]
+    reset_peak()
+    batches = [lambda s=s: (recsys.random_batch(cfg, B, seed=10 + s,
+                                                device=dev),)
+               for s in range(5)]
+    losses, ms, params = adamw_steps(
+        loss, recsys.init_params(torch.Generator(dev).manual_seed(0), cfg),
+        batches, f"(train_batch) one AdamW step at batch {B}")
+    say(f"(train_batch) batch {B}, 5 AdamW steps (dense table gradients): "
+        "losses " + ", ".join(f"{x:.6f}" for x in losses)
+        + "; ms per step " + ", ".join(f"{x:.3f}" for x in ms)
+        + f"; peak {peak_gib():.3f} GiB")
+    del params
+    reset_peak()
+
+    # one step at full widths, vocab and hash cut, card vs CPU
+    cut = dataclasses.replace(cfg, vocab_per_field=min(cfg.vocab_per_field,
+                                                       RECSYS_CUT),
+                              wide_hash=min(cfg.wide_hash, RECSYS_CUT))
+    p0 = recsys.init_params(torch.Generator().manual_seed(0), cut)
+    batch = recsys.random_batch(cut, RECSYS_CUT_BATCH, seed=4, device=cpu)
+    t0 = time.perf_counter()
+    check_card_vs_cpu(
+        f"(train check) one AdamW step, vocab_per_field and wide_hash cut "
+        f"to {cut.vocab_per_field} (from {cfg.vocab_per_field}), batch "
+        f"{RECSYS_CUT_BATCH}", lambda p, b: recsys.loss_fn(p, b, cut), p0,
+        (batch,), dev)
+    say(f"(train check) {time.perf_counter() - t0:.2f} s")
+    say(f"phase 7 launch counts after: {launch_counts()}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def reddit_sampler():
+    """``minibatch_lg``'s graph at Reddit's size, on the host, and its
+    ``NeighborSampler``; prints the seconds of each."""
+    import numpy as np
+    from repro_torch.configs.gnn_shapes import GNN_SHAPES
+    from repro_torch.data import graphs
+    spec = GNN_SHAPES["minibatch_lg"]
+    n, e = spec["global_nodes"], spec["global_edges"]
+    t0 = time.perf_counter()
+    g, labels = graphs.random_feature_graph(n, e, spec["d_feat"],
+                                            spec["n_classes"], seed=0,
+                                            device="cpu")
+    t1 = time.perf_counter()
+    sampler = graphs.NeighborSampler(n, g.src.numpy(), g.dst.numpy(),
+                                     g.x.numpy(), labels.numpy(),
+                                     fanouts=spec["fanout"], seed=0)
+    say(f"phase 8 (a) minibatch_lg: synthetic graph of {n} nodes, {e} edges, "
+        f"{spec['d_feat']} features, {spec['n_classes']} classes (numpy seed "
+        f"0) in {t1 - t0:.2f} s; CSR in {time.perf_counter() - t1:.2f} s "
+        "(set-up)")
+    seeds = np.random.default_rng(1)
+    return sampler, spec, [seeds.choice(n, spec["batch_nodes"], replace=False)
+                           for _ in range(5)]
+
+
+def phase_gnn_minibatch(dev):
+    """Phase 8 (a): GatedGCN and PNA, 5 AdamW steps each on sampled
+    Reddit-size batches; the first batch card vs CPU."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.gnn import gatedgcn, pna
+    sampler, spec, seeds = reddit_sampler()
+    cpu = torch.device("cpu")
+    for name, mod in (("gatedgcn", gatedgcn), ("pna", pna)):
+        cfg = configs.get(name).config(d_in=spec["d_feat"],
+                                       n_classes=spec["n_classes"])
+        reset_peak()
+        p0 = mod.init_params(torch.Generator(dev).manual_seed(0), cfg)
+        sample_ms, first = [], []
+
+        def batch_at(s):
+            sync()
+            t0 = time.perf_counter()
+            g, labels = sampler.sample(seeds[s], device=dev)
+            sync()
+            sample_ms.append((time.perf_counter() - t0) * 1e3)
+            if not first:
+                first.append((g, labels))
+            return g, labels, cfg
+        losses, ms, _ = adamw_steps(mod.loss_fn, p0,
+                                    [lambda s=s: batch_at(s)
+                                     for s in range(5)],
+                                    f"(a) {cfg.name} one AdamW step")
+        g, labels = first[0]
+        say(f"(a) {cfg.name} {cfg.n_layers} layers d {cfg.d_hidden} on "
+            f"{g.n_nodes} nodes / {g.n_edges} edges ({int(g.edge_mask.sum())} "
+            f"valid, {int((labels >= 0).sum())} labelled), 5 AdamW steps: "
+            "losses " + ", ".join(f"{x:.6f}" for x in losses)
+            + "; sampler ms (host sampling + copy to the card) "
+            + ", ".join(f"{x:.3f}" for x in sample_ms) + "; step ms "
+            + ", ".join(f"{x:.3f}" for x in ms)
+            + f"; peak {peak_gib():.3f} GiB")
+        ph, gh = moved(p0, cpu), g.to(cpu)
+        # PNA's std aggregator is ill-conditioned in fp32 where a node's
+        # messages are all equal: its logits and loss are held in float64
+        held32 = name != "pna"
+        for cast, kind in ((lambda x: x, "fp32"), (as_f64, "float64")):
+            with torch.no_grad():
+                lg = out_gap(mod.forward(cast(p0), cast(g), cfg),
+                             mod.forward(cast(ph), cast(gh), cfg))
+            held = (kind == "fp32") == held32
+            say(f"(a) {cfg.name} first batch, {kind}: logits max |card - "
+                f"cpu| {lg:.3g} of scale"
+                + (f" (limit {GNN_TOL['out']})" if held else " (printed)"))
+            if held and lg > GNN_TOL["out"]:
+                raise AssertionError(f"(a) {name} logits: card and CPU "
+                                     "disagree")
+        check_card_vs_cpu(f"(a) {cfg.name} first batch", mod.loss_fn, ph,
+                          (gh, labels.cpu(), cfg), dev, tol=GNN_TOL,
+                          step=False, held32=held32)
+        del p0, ph, g, gh, first
+    del sampler
+
+
+def phase_gnn():
+    """Phase 8: the GNNs at their published widths."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.gnn_shapes import GNN_SHAPES
+    from repro_torch.data import graphs
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import dcn_v2
+    from repro_torch.models.gnn import (equiformer_v2, gat, gatedgcn, mace,
+                                        pna, so3)
+    from repro_torch.models.gnn.common import GraphBatch
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    cpu = torch.device("cpu")
+    say(f"phase 8 launch counts before: {launch_counts()}")
+    phase_gnn_minibatch(dev)
+    say(f"(a) {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) full_graph_sm: one step each, card vs CPU
+    t0 = time.perf_counter()
+    spec = GNN_SHAPES["full_graph_sm"]
+    gh, lh = graphs.random_feature_graph(spec["n_nodes"], spec["n_edges"],
+                                         spec["d_feat"], spec["n_classes"],
+                                         seed=0, device=cpu)
+    for name, mod, cfg in (
+            ("gatedgcn", gatedgcn, configs.get("gatedgcn").config()),
+            ("pna", pna, configs.get("pna").config()),
+            ("gat", gat, gat.GATConfig())):
+        p0 = mod.init_params(torch.Generator().manual_seed(0), cfg)
+        check_card_vs_cpu(
+            f"(b) full_graph_sm {spec['n_nodes']} nodes / {spec['n_edges']} "
+            f"edges, {cfg.name}, one AdamW step", mod.loss_fn, p0,
+            (gh, lh, cfg), dev, held32=name != "pna")
+    say(f"(b) {time.perf_counter() - t0:.1f} s")
+
+    # (c) molecule: MACE and EquiformerV2
+    t0 = time.perf_counter()
+    spec = GNN_SHAPES["molecule"]
+    g, energies = graphs.random_molecule_batch(
+        spec["batch"], spec["n_nodes"], spec["n_edges"], seed=0, device=dev)
+    rng = np.random.default_rng(5)
+    a, b_, c = rng.uniform(0, 2 * np.pi, 3)
+    R = torch.as_tensor(so3._rot_z(a) @ so3._rot_y(b_) @ so3._rot_z(c),
+                        dtype=torch.float32, device=dev)
+    k = MOLECULE_CHECK_GRAPHS
+    nn_, ne = k * spec["n_nodes"], k * spec["n_edges"]
+    small = GraphBatch(src=g.src[:ne].cpu(), dst=g.dst[:ne].cpu(),
+                       pos=g.pos[:nn_].cpu(), species=g.species[:nn_].cpu(),
+                       graph_id=g.graph_id[:nn_].cpu(), n_graphs=k)
+    for name, mod in (("mace", mace), ("equiformer_v2", equiformer_v2)):
+        cfg = configs.get(name).config()
+        reset_peak()
+        p0 = mod.init_params(torch.Generator(dev).manual_seed(0), cfg)
+        losses, ms, _ = adamw_steps(mod.loss_fn, p0,
+                                    [lambda: (g, energies, cfg)] * 5,
+                                    f"(c) {cfg.name} one AdamW step")
+        say(f"(c) {cfg.name} {cfg.n_layers} layers, {cfg.channels} "
+            f"channels, l_max {cfg.l_max} on {spec['batch']} graphs "
+            f"({g.n_nodes} nodes, {g.n_edges} edges), 5 AdamW steps: "
+            "losses " + ", ".join(f"{x:.6f}" for x in losses)
+            + "; ms per step " + ", ".join(f"{x:.3f}" for x in ms)
+            + f"; peak {peak_gib():.3f} GiB")
+        ph = moved(p0, cpu)
+        # EquiformerV2 at init is ill-conditioned in fp32: _irrep_norm
+        # scales its near-zero l >= 1 blocks up to unit rms, and with them
+        # the rounding of the rotations and sums that made them; its checks
+        # are printed in fp32 and held in float64 (the Wigner blocks stay
+        # the reference's fp32, promoted)
+        for f64 in (False, True) if name == "equiformer_v2" else (False,):
+            cast = as_f64 if f64 else (lambda x: x)
+            held = f64 or name != "equiformer_v2"
+            kind = "float64" if f64 else "fp32"
+            pd, gd = cast(p0), cast(g)
+            Rd = R.to(gd.pos.dtype)
+            with torch.no_grad():
+                e0 = mod.forward(pd, gd, cfg)
+                gaps = {"rotation": out_gap(mod.forward(
+                    pd, dataclasses.replace(gd, pos=gd.pos @ Rd.T), cfg),
+                    e0.cpu())}
+                if name == "mace":
+                    shift = torch.tensor([1.5, -2.0, 0.3], device=dev,
+                                         dtype=gd.pos.dtype)
+                    gaps["translation"] = out_gap(mod.forward(
+                        pd, dataclasses.replace(gd, pos=gd.pos + shift),
+                        cfg), e0.cpu())
+                eg = out_gap(mod.forward(pd, cast(small).to(dev), cfg),
+                             mod.forward(cast(ph), cast(small), cfg))
+            say(f"(c) {cfg.name} invariance on the card, {kind}: max "
+                f"|E(R x) - E(x)| {gaps['rotation']:.3g} of scale"
+                + (f"; max |E(x + t) - E(x)| {gaps['translation']:.3g}"
+                   if "translation" in gaps else "")
+                + (f" (limit {GNN_TOL['out']})" if held else " (printed)"))
+            say(f"(c) {cfg.name} card vs cpu on the first {k} of "
+                f"{spec['batch']} graphs (the CPU backward at "
+                f"{spec['batch']} takes minutes), {kind}: energies {eg:.3g} "
+                "of scale")
+            if held and max(max(gaps.values()), eg) > GNN_TOL["out"]:
+                raise AssertionError(f"(c) {name}: not invariant, or card "
+                                     "and CPU energies disagree")
+        check_card_vs_cpu(f"(c) {cfg.name} first {k} graphs", mod.loss_fn,
+                          ph, (small, energies[:k].cpu(), cfg), dev,
+                          tol=GNN_TOL, step=False,
+                          held32=name != "equiformer_v2")
+        del p0, ph
+    say(f"(c) {time.perf_counter() - t0:.1f} s")
+
+    # (d) DCN-v2 at its defaults, batch 4096: one step card vs CPU
+    t0 = time.perf_counter()
+    cfg = dcn_v2.DCNv2Config()
+    p0 = dcn_v2.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = dcn_v2.random_batch(cfg, DCN_BATCH, seed=0, device=cpu)
+    check_card_vs_cpu(f"(d) {cfg.name} {cfg.n_sparse} x "
+                      f"{cfg.vocab_per_field} x {cfg.embed_dim}, {cfg.n_cross} "
+                      f"cross layers of rank {cfg.cross_rank}, MLP "
+                      f"{'-'.join(map(str, cfg.mlp))}, batch {DCN_BATCH}, "
+                      "one AdamW step",
+                      lambda p, b: dcn_v2.loss_fn(p, b, cfg), p0, (batch,),
+                      dev)
+    say(f"(d) {time.perf_counter() - t0:.1f} s")
+    say(f"phase 8 launch counts after: {launch_counts()}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    reset_peak()
+
+
 def flash_rows(cap, arch=None) -> list:
     """The flash kernel's prefill and decode rows at a serving path's
     captured calls; ``arch`` names the rows of a path other than phase
@@ -1648,6 +2259,8 @@ def main() -> int:
     rows += flash_rows(phase_serve())
     rows += flash_rows(phase_moe_serve(), MOE_ARCH)
     phase_train()
+    phase_recsys()
+    phase_gnn()
     rows += [embedding_bag_row()]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))

@@ -2,13 +2,12 @@
   * ``config()``       — full published config
   * ``smoke_config()`` — reduced same-family config for CPU smoke tests
   * ``SHAPES``         — dict shape_name -> spec dict (the assigned cells)
-  * ``FAMILY``         — "lm" | "db"
+  * ``FAMILY``         — "lm" | "gnn" | "recsys" | "db"
 
-Only the ported archs are listed, in the JAX package's order: the two MoE
-LMs and the three dense LMs, and the paper's own ``gredo`` workload
-config (``FAMILY = "db"``; ``all_cells`` skips it, as the JAX package's
-registry does). The GNNs and recsys come with the modules they need
-(ROADMAP, queue 1 items 10c and 10d).
+The archs of the JAX package, in its order: the two MoE LMs and the
+three dense LMs, the four GNNs, Wide & Deep, and the paper's own
+``gredo`` workload config (``FAMILY = "db"``; ``all_cells`` skips it, as
+the JAX package's registry does).
 """
 from __future__ import annotations
 
@@ -18,6 +17,10 @@ ARCHS = (
     # LM family
     "olmoe_1b_7b", "granite_moe_1b_a400m", "starcoder2_3b", "qwen2_1_5b",
     "stablelm_3b",
+    # GNN
+    "gatedgcn", "mace", "equiformer_v2", "pna",
+    # RecSys
+    "wide_deep",
     # the paper's own workload
     "gredo",
 )

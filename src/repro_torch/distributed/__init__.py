@@ -1,3 +1,3 @@
-"""Distribution layer of the port: fault-tolerance utilities. The mesh
-sharding rules and elastic re-mesh come with ROADMAP queue 1 items 10c
-and 11."""
+"""Distribution layer of the port: fault-tolerance utilities and elastic
+moves of live state between devices. The mesh sharding rules come with
+ROADMAP queue 1 item 11."""

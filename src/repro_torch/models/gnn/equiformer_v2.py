@@ -1,0 +1,211 @@
+"""EquiformerV2 [arXiv:2306.12059] of the port: equivariant graph
+attention with eSCN SO(2) convolutions.
+
+Mirrors ``repro.models.gnn.equiformer_v2`` (see its docstring for the eSCN
+structure: rotate into the edge frame, per-|m| SO(2) mixing up to m_max,
+rotate back, attention over incoming edges). The reference's
+``.at[].set`` block writes become out-of-place ops: per-l blocks are
+concatenated, and the SO(2) outputs are placed into fresh zeros with
+``index_copy`` (rows above m_max stay zero), so autograd never meets an
+in-place write. The per-edge Wigner blocks are computed once per forward,
+as in the reference.
+
+``channel_shard_axis`` (the reference's channel sharding over a mesh
+axis) is the identity when empty and otherwise raises: it waits for
+ROADMAP queue 1, item 11.
+
+Config (assigned): n_layers=12, d_hidden=128, l_max=6, m_max=2, n_heads=8.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from .. import params_from_arrays  # noqa: F401  (re-exported)
+from . import so3
+from .common import (GraphBatch, mlp_apply, mlp_params, scatter_softmax,
+                     scatter_sum)
+from .mace import _bessel, _blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class EquiformerV2Config:
+    name: str = "equiformer-v2"
+    n_layers: int = 12
+    channels: int = 128
+    l_max: int = 6
+    m_max: int = 2
+    n_heads: int = 8
+    n_species: int = 16
+    n_rbf: int = 8
+    r_cut: float = 5.0
+    # the reference's channel sharding over this mesh axis (not ported)
+    channel_shard_axis: str = ""
+
+    @property
+    def sh_dim(self) -> int:
+        return so3.sh_dim(self.l_max)
+
+
+def _m_index_sets(l_max: int, m_max: int):
+    """For each |m| <= m_max: (rows_cos, rows_sin) index lists into the
+    (l_max+1)^2 irrep vector; m=0 -> (rows, None)."""
+    sets = []
+    for m in range(m_max + 1):
+        cos_rows = [l * l + l + m for l in range(m, l_max + 1)]
+        sin_rows = [l * l + l - m for l in range(m, l_max + 1)] if m else None
+        sets.append((cos_rows, sin_rows))
+    return sets
+
+
+@functools.lru_cache(maxsize=None)
+def _m_index_tensors(l_max: int, m_max: int, device: torch.device):
+    """``_m_index_sets`` as index tensors on ``device``, and every row they
+    name, in the order ``_so2_conv`` concatenates its outputs."""
+    sets, order = [], []
+    for rows_c, rows_s in _m_index_sets(l_max, m_max):
+        sets.append((torch.tensor(rows_c, device=device),
+                     None if rows_s is None
+                     else torch.tensor(rows_s, device=device)))
+        order += rows_c + (rows_s or [])
+    return sets, torch.tensor(order, device=device)
+
+
+def init_params(gen: torch.Generator, cfg: EquiformerV2Config):
+    C, H = cfg.channels, cfg.n_heads
+    dev = gen.device
+
+    def normal(*shape, scale):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32) * scale
+
+    layers = []
+    for _ in range(cfg.n_layers):
+        so2 = []
+        for rows_c, rows_s in _m_index_sets(cfg.l_max, cfg.m_max):
+            fan = len(rows_c) * C
+            so2.append({"wr": normal(fan, fan, scale=fan ** -0.5),
+                        "wi": (normal(fan, fan, scale=fan ** -0.5)
+                               if rows_s else None)})
+        layers.append({
+            "so2": so2,
+            "radial": mlp_params(gen, [cfg.n_rbf, 64, C]),
+            "attn": mlp_params(gen, [2 * C, C, H]),
+            "w_val": normal(C, C, scale=C ** -0.5),
+            "ffn_gate": mlp_params(gen, [C, C * 2]),
+            "ffn_mix": normal(cfg.l_max + 1, C, C, scale=C ** -0.5),
+            "ln": torch.ones((cfg.l_max + 1, C), device=dev),
+        })
+    return {
+        "species_embed": normal(cfg.n_species, C, scale=0.3),
+        "layers": layers,
+        "readout": mlp_params(gen, [C, 64, 1]),
+    }
+
+
+def _irrep_norm(h, gains, l_max):
+    """Per-l RMS norm over (m, channel)."""
+    out = []
+    for l, sl in enumerate(_blocks(l_max)):
+        blk = h[:, sl, :]
+        rms = torch.sqrt(torch.mean(blk * blk, dim=(1, 2), keepdim=True)
+                         + 1e-6)
+        out.append(blk / rms * gains[l])
+    return torch.cat(out, 1)
+
+
+def _so2_conv(feat_edge, so2_w, radial, msets, order, C):
+    """feat_edge: (E, dim, C) in edge frame. Per-|m| dense mixing over
+    (l-stack x channels); radial (E, C) modulates channels. ``msets`` and
+    ``order`` from ``_m_index_tensors``: rows above m_max stay zero."""
+    outs = []
+    for (rows_c, rows_s), w in zip(msets, so2_w):
+        nl = rows_c.numel()
+        fc = feat_edge.index_select(1, rows_c).reshape(-1, nl * C)
+        if rows_s is None:
+            outs.append((fc @ w["wr"]).reshape(-1, nl, C) * radial[:, None, :])
+        else:
+            fs = feat_edge.index_select(1, rows_s).reshape(-1, nl * C)
+            oc = fc @ w["wr"] - fs @ w["wi"]
+            os_ = fc @ w["wi"] + fs @ w["wr"]
+            outs.append(oc.reshape(-1, nl, C) * radial[:, None, :])
+            outs.append(os_.reshape(-1, nl, C) * radial[:, None, :])
+    return torch.zeros_like(feat_edge).index_copy(1, order, torch.cat(outs, 1))
+
+
+def _cshard(cfg: EquiformerV2Config, x):
+    if not cfg.channel_shard_axis:
+        return x
+    raise NotImplementedError(
+        f"channel sharding over {cfg.channel_shard_axis!r} is not ported yet "
+        "(ROADMAP queue 1, item 11)")
+
+
+def forward(params, g: GraphBatch, cfg: EquiformerV2Config):
+    N = g.n_nodes
+    C, dim, H = cfg.channels, cfg.sh_dim, cfg.n_heads
+    dev = g.pos.device
+    msets, order = _m_index_tensors(cfg.l_max, cfg.m_max, dev)
+    blocks = _blocks(cfg.l_max)
+
+    emb = params["species_embed"][g.species]
+    h = _cshard(cfg, torch.cat([emb[:, None, :],
+                                emb.new_zeros((N, dim - 1, C))], 1))
+
+    vec = g.pos[g.dst] - g.pos[g.src]
+    r = torch.linalg.norm(vec + 1e-12, dim=-1)
+    r_hat = vec / (r[:, None] + 1e-9)
+    rbf = _bessel(r, cfg.n_rbf, cfg.r_cut)
+    edge_valid = (r > 1e-6).float()                  # zero-length edges are
+    if g.edge_mask is not None:                      # frame-degenerate: drop
+        edge_valid = edge_valid * g.edge_mask
+
+    # (E, dim, dim), fp32 as in the reference, promoted to the features'
+    # dtype as the reference's einsum promotes it
+    D = so3.edge_frame_wigner(r_hat, cfg.l_max).to(h.dtype)
+    Dt = D.transpose(1, 2)
+
+    for lp in params["layers"]:
+        hn = _irrep_norm(h, lp["ln"], cfg.l_max)
+        radial = mlp_apply(lp["radial"], rbf) * edge_valid[:, None]  # (E, C)
+
+        # eSCN message: rotate -> per-m SO(2) mixing -> rotate back
+        src_feat = torch.bmm(D, hn[g.src])
+        msg_edge = _so2_conv(src_feat, lp["so2"], radial, msets, order, C)
+        msg = torch.bmm(Dt, msg_edge)                     # back to global
+
+        # attention over incoming edges from invariant channels
+        inv = torch.cat([hn[g.dst][:, 0, :], msg[:, 0, :]], -1)
+        logits = mlp_apply(lp["attn"], inv)               # (E, H)
+        if g.edge_mask is not None:
+            logits = torch.where(g.edge_mask[:, None] > 0, logits, -1e30)
+        att = scatter_softmax(logits, g.dst, N)           # (E, H)
+        # heads gate channel groups
+        att_c = torch.repeat_interleave(att, C // H, dim=-1)   # (E, C)
+        val = torch.einsum("eic,cd->eid", msg, lp["w_val"])
+        h = h + _cshard(cfg, scatter_sum(val * att_c[:, None, :], g.dst, N))
+
+        # equivariant FFN: scalars gate all l-blocks
+        hn2 = _irrep_norm(h, lp["ln"], cfg.l_max)
+        gate = mlp_apply(lp["ffn_gate"], hn2[:, 0, :])    # (N, 2C)
+        g1, g2 = gate[:, :C], gate[:, C:]
+        up = torch.cat([
+            torch.einsum("nmc,cd->nmd", hn2[:, sl, :], lp["ffn_mix"][l])
+            * (F.silu(g1) if l == 0 else torch.sigmoid(g2))[:, None, :]
+            for l, sl in enumerate(blocks)], 1)
+        h = h + _cshard(cfg, up)
+
+    node_e = mlp_apply(params["readout"], h[:, 0, :])[:, 0]
+    if g.node_mask is not None:
+        node_e = node_e * g.node_mask
+    gid = (g.graph_id if g.graph_id is not None
+           else torch.zeros((N,), dtype=torch.int32, device=dev))
+    return scatter_sum(node_e, gid, g.n_graphs)
+
+
+def loss_fn(params, g: GraphBatch, energy_labels, cfg: EquiformerV2Config):
+    pred = forward(params, g, cfg)
+    return torch.mean((pred - energy_labels) ** 2)

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention.ops import flash_attention
+from . import params_from_arrays  # noqa: F401  (re-exported)
 
 Params = dict
 
@@ -192,16 +193,6 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig) -> Params:
     if not cfg.tie_embeddings:
         params["head"] = norm_init(d, v)
     return params
-
-
-def params_from_arrays(tree) -> Params:
-    """The port's parameters, on the CPU, from the reference's, given as a
-    (nested) dict of numpy arrays (``jax.tree.map(np.asarray, params)``):
-    the model-side counterpart of ``storage.database_from_arrays``."""
-    if isinstance(tree, dict):
-        return {k: params_from_arrays(v) for k, v in tree.items()}
-    import numpy as np
-    return torch.from_numpy(np.array(tree))
 
 
 def cast_params(params: Params, cfg: TransformerConfig) -> Params:

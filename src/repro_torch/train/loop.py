@@ -36,6 +36,26 @@ class TrainerConfig:
     async_ckpt: bool = True
 
 
+def value_and_grad(loss_fn: Callable, params: Tree, *args,
+                   has_aux: bool = False):
+    """``jax.value_and_grad(loss_fn, has_aux=has_aux)(params, *args)``:
+    the loss (detached; with ``has_aux``, ``(loss, aux)`` from a
+    ``loss_fn`` returning both) and the gradient tree of ``params``
+    (``torch.autograd.grad``; a parameter the loss does not reach gets
+    zeros, as in JAX)."""
+    tracked = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    leaves = tree_leaves(tracked)
+    out = loss_fn(tracked, *args)
+    loss = out[0] if has_aux else out
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    it = iter([torch.zeros_like(p) if g is None else g
+               for p, g in zip(leaves, grads)])
+    grads = tree_map(lambda _: next(it), tracked)
+    if has_aux:
+        return (loss.detach(), out[1]), grads
+    return loss.detach(), grads
+
+
 class Trainer:
     def __init__(self, loss_fn: Callable, params: Tree,
                  data_at: Callable[[int], dict], tcfg: TrainerConfig,
@@ -54,14 +74,9 @@ class Trainer:
 
     def _value_and_grad(self, params: Tree, batch: dict):
         """((loss, aux), grads) of ``loss_fn`` at ``params``."""
-        tracked = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        leaves = tree_leaves(tracked)
-        loss, aux = self.loss_fn(tracked, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        it = iter([torch.zeros_like(p) if g is None else g
-                   for p, g in zip(leaves, grads)])
-        return (loss.detach(), aux.detach()), tree_map(lambda _: next(it),
-                                                       tracked)
+        (loss, aux), grads = value_and_grad(self.loss_fn, params, batch,
+                                            has_aux=True)
+        return (loss, aux.detach()), grads
 
     def _step(self, params: Tree, opt_state: Tree, batch: dict):
         """One optimizer step: (params, opt_state, loss, aux)."""

@@ -1,9 +1,9 @@
 """AdamW with optional int8 gradient compression (error feedback).
 
-States are plain trees (nested dicts and lists of tensors), as in the
-reference: ``adamw_init`` gives {"m", "v", "step"} with ``step`` an int32
-scalar, and ``adamw_update`` returns new trees and leaves its inputs
-untouched. Trees are walked with dict keys in sorted order, as
+States are plain trees (nested dicts and lists of tensors, ``None`` an
+empty subtree), as in the reference: ``adamw_init`` gives {"m", "v",
+"step"} with ``step`` an int32 scalar, and ``adamw_update`` returns new
+trees and leaves its inputs untouched. Trees are walked with dict keys in sorted order, as
 ``jax.tree`` walks them.
 """
 from __future__ import annotations
@@ -28,7 +28,10 @@ class AdamWConfig:
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     """``fn`` over the leaves of ``tree`` and the matching leaves of
-    ``rest`` (trees of the same structure)."""
+    ``rest`` (trees of the same structure). ``None`` is an empty subtree,
+    as in ``jax.tree``: it has no leaf and maps to ``None``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}

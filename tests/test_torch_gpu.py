@@ -1,7 +1,9 @@
 """Card-only tests: each hand-written CUDA kernel against its plain PyTorch
 version on the card at the reference sweep shapes, the wrappers' input
-checks, the engine on the card against the same engine on the CPU, and the
-smoke-size LMs and serving scheduler on the card against the CPU.
+checks, the engine on the card against the same engine on the CPU, the
+smoke-size LMs and serving scheduler, and each recsys and GNN family's
+smoke config (with a sampled batch of -1 labels), on the card against the
+CPU.
 Skipped where there is no card; run on the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -588,3 +590,125 @@ def test_trainer_step_on_card_matches_cpu(cuda, tmp_path):
             g.abs().max())
         held = g.abs() * clip >= 100 * opt.eps
         torch.testing.assert_close(p.cpu()[held], q[held], rtol=0, atol=1e-4)
+
+
+def _to(x, dev):
+    """Tensors, dicts, lists and graph batches moved to ``dev``."""
+    from repro_torch.models.gnn.common import GraphBatch
+    if isinstance(x, GraphBatch) or torch.is_tensor(x):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: _to(v, dev) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to(v, dev) for v in x)
+    return x
+
+
+def _grad_gaps(a, b):
+    """Each gradient's max |card - cpu| over its largest |cpu|; a linear
+    layer's bias (``b`` beside ``w``) over the largest of its own and its
+    weight's (an attention MLP's last bias has a zero gradient in exact
+    arithmetic under the edge softmax: rounding alone)."""
+    if torch.is_tensor(b):
+        yield float((a.cpu() - b).abs().max()), float(b.abs().max())
+    elif isinstance(b, dict):
+        for k in sorted(b):
+            for gap, scale in _grad_gaps(a[k], b[k]):
+                if k == "b" and "w" in b:
+                    scale = max(scale, float(b["w"].abs().max()))
+                yield gap, scale
+    elif b is not None:
+        for u, v in zip(a, b):
+            yield from _grad_gaps(u, v)
+
+
+def _family_case(name):
+    """(module, cfg, params on the CPU, extra loss args on the CPU) of one
+    family's smoke config; PNA and EquiformerV2 in float64 (ill-conditioned
+    in fp32 in both packages: PNA's std aggregator where a node's messages
+    are all equal, EquiformerV2's norm of its near-zero l >= 1 blocks)."""
+    from repro_torch import configs
+    from repro_torch.data import graphs
+    from repro_torch.models import dcn_v2, recsys
+    from repro_torch.models.gnn import equiformer_v2, gat, gatedgcn, mace, pna
+    from repro_torch.train.optimizer import tree_map
+    gen = torch.Generator().manual_seed(0)
+    if name in ("wide_deep", "dcn_v2"):
+        mod = recsys if name == "wide_deep" else dcn_v2
+        cfg = (configs.get("wide_deep").smoke_config() if mod is recsys
+               else dcn_v2.DCNv2Config(vocab_per_field=500, embed_dim=4,
+                                       n_sparse=6, n_dense=3, cross_rank=8,
+                                       mlp=(16, 8)))
+        return mod, cfg, mod.init_params(gen, cfg), (
+            mod.random_batch(cfg, 64, seed=1, device="cpu"),)
+    if name in ("mace", "equiformer_v2"):
+        mod = mace if name == "mace" else equiformer_v2
+        cfg = configs.get(name).smoke_config()
+        g, e = graphs.random_molecule_batch(4, 8, 20, n_species=cfg.n_species,
+                                            device="cpu")
+        p = mod.init_params(gen, cfg)
+        if name == "equiformer_v2":
+            import dataclasses as dc
+            p = tree_map(lambda t: t.double(), p)
+            g = dc.replace(g, pos=g.pos.double())
+        return mod, cfg, p, (g, e)
+    mod = {"gatedgcn": gatedgcn, "pna": pna, "gat": gat}[name]
+    cfg = (gat.GATConfig(n_layers=2, d_hidden=16, n_heads=4, d_in=24,
+                         n_classes=4) if name == "gat"
+           else configs.get(name).smoke_config())
+    g, labels = graphs.random_feature_graph(60, 240, cfg.d_in, cfg.n_classes,
+                                            seed=1, device="cpu")
+    p = mod.init_params(gen, cfg)
+    if name == "pna":
+        import dataclasses as dc
+        p = tree_map(lambda t: t.double(), p)
+        g = dc.replace(g, x=g.x.double())
+    return mod, cfg, p, (g, labels)
+
+
+@pytest.mark.parametrize("name", ["wide_deep", "dcn_v2", "gatedgcn", "pna",
+                                  "gat", "mace", "equiformer_v2"])
+def test_smoke_family_on_card_matches_cpu(cuda, name):
+    """Each recsys and GNN family's smoke config, the same weights and
+    inputs on the card and on the CPU (fp32, TF32 off; PNA and
+    EquiformerV2 float64):
+    the loss within 1e-5 (relative) and each gradient within 1e-4 of its
+    tensor's largest (``_grad_gaps``; scatter-adds on the card sum in no
+    fixed order)."""
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optimizer import tree_leaves
+    mod, cfg, p, args = _family_case(name)
+    lc, gc = value_and_grad(mod.loss_fn, _to(p, cuda), *_to(args, cuda), cfg)
+    lh, gh = value_and_grad(mod.loss_fn, p, *args, cfg)
+    assert all(t.device.type == "cuda" for t in tree_leaves(gc))
+    assert abs(float(lc) - float(lh)) <= 1e-5 * abs(float(lh))
+    for gap, scale in _grad_gaps(gc, gh):
+        assert gap <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("name", ["gatedgcn", "pna", "gat"])
+def test_sampled_batch_with_unlabelled_nodes_on_card(cuda, name):
+    """A ``NeighborSampler`` batch on the card: every node but the seeds
+    has label -1; the loss and its backward run without a device-side
+    assert, and agree with the CPU (fp32; PNA float64)."""
+    import dataclasses as dc
+    from repro_torch.data.graphs import NeighborSampler
+    from repro_torch.train.loop import value_and_grad
+    mod, cfg, p, _ = _family_case(name)
+    rng = np.random.default_rng(3)
+    n = 400
+    src, dst = rng.integers(0, n, 900), rng.integers(0, n, 900)
+    x = rng.standard_normal((n, cfg.d_in)).astype(np.float32)
+    s = NeighborSampler(n, src, dst, x, rng.integers(0, cfg.n_classes, n),
+                        fanouts=(5, 3), seed=0)
+    seeds = rng.integers(0, n, 16)
+    g, labels = s.sample(seeds, device=cuda)
+    assert g.x.device.type == "cuda" and bool((labels == -1).any())
+    if name == "pna":
+        g = dc.replace(g, x=g.x.double())
+    lc, gc = value_and_grad(mod.loss_fn, _to(p, cuda), g, labels, cfg)
+    torch.cuda.synchronize()
+    lh, gh = value_and_grad(mod.loss_fn, p, g.to("cpu"), labels.cpu(), cfg)
+    assert abs(float(lc) - float(lh)) <= 1e-5 * abs(float(lh))
+    for gap, scale in _grad_gaps(gc, gh):
+        assert gap <= 1e-4 * scale

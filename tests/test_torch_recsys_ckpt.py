@@ -1,10 +1,11 @@
-"""Twins of ``tests/test_recsys_ckpt.py``'s checkpoint and fault-tolerance
-tests on the port (``checkpoint.CheckpointManager``,
-``distributed.fault``), checkpoints written by either package restored by
-the other, and the Trainer's restart path: a run that fails at a step and
-restarts from its checkpoint ends where an uninterrupted run ends. The
-Wide & Deep tests wait for the port's recsys (ROADMAP queue 1, item
-10c)."""
+"""Twins of ``tests/test_recsys_ckpt.py`` on the port: Wide & Deep
+(training improves, top-k retrieval against brute force, wide hash in
+range), the checkpoint and fault-tolerance tests
+(``checkpoint.CheckpointManager``, ``distributed.fault``) and the elastic
+reshard; checkpoints written by either package restored by the other, and
+the Trainer's restart path: a run that fails at a step and restarts from
+its checkpoint ends where an uninterrupted run ends. Wide & Deep's parity
+with the reference is in ``test_torch_recsys.py``."""
 import dataclasses
 import os
 
@@ -17,14 +18,59 @@ import torch
 from repro.checkpoint import CheckpointManager as JaxCheckpointManager
 from repro.models import transformer as jtf
 from repro.train import optimizer as jopt
+from repro_torch import configs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data.lm import TokenStream
 from repro_torch.distributed.fault import (FailureInjector, StepWatchdog,
                                            run_with_restarts)
+from repro_torch.models import recsys
 from repro_torch.models.transformer import (TransformerConfig, init_params,
                                             loss_fn, params_from_arrays)
-from repro_torch.train.loop import Trainer, TrainerConfig
+from repro_torch.train.loop import Trainer, TrainerConfig, value_and_grad
 from repro_torch.train.optimizer import adamw_init, tree_leaves, tree_map
+
+
+@pytest.fixture(scope="module")
+def rs():
+    cfg = configs.get("wide_deep").smoke_config()
+    p = recsys.init_params(torch.Generator().manual_seed(0), cfg)
+    return cfg, p
+
+
+def test_recsys_train_improves(rs):
+    cfg, p = rs
+    batch = recsys.random_batch(cfg, 256, seed=1, device="cpu")
+    # plant signal: label = f(first sparse field)
+    batch = dict(batch, labels=(batch["sparse"][:, 0] % 2).float())
+    loss0 = float(recsys.loss_fn(p, batch, cfg))
+    for _ in range(30):
+        _, g = value_and_grad(recsys.loss_fn, p, batch, cfg)
+        p = tree_map(lambda a, gr: a - 0.5 * gr, p, g)
+    loss1 = float(recsys.loss_fn(p, batch, cfg))
+    assert loss1 < loss0 - 0.05
+
+
+def test_retrieval_topk_matches_bruteforce(rs):
+    cfg, p = rs
+    batch = recsys.random_batch(cfg, 4, seed=2, device="cpu")
+    cands = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (300, cfg.tower_dim)), dtype=torch.float32)
+    vals, idx = recsys.retrieval_step(p, batch["dense"], batch["sparse"],
+                                      cands, cfg, top_k=10)
+    q = recsys.user_tower(p, batch["dense"], batch["sparse"], cfg).numpy()
+    qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+    cn = cands.numpy() / np.linalg.norm(cands.numpy(), axis=1, keepdims=True)
+    brute = qn @ cn.T
+    for b in range(4):
+        expect = set(np.argsort(-brute[b])[:10].tolist())
+        assert set(idx[b].tolist()) == expect
+
+
+def test_wide_hash_in_range(rs):
+    cfg, p = rs
+    batch = recsys.random_batch(cfg, 64, seed=4, device="cpu")
+    ids = recsys._hash_cross(batch["sparse"], cfg.wide_hash)
+    assert int(ids.min()) >= 0 and int(ids.max()) < cfg.wide_hash
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -100,6 +146,14 @@ def test_failure_injector_fires_once():
     with pytest.raises(RuntimeError):
         fi.maybe_fail(5)
     fi.maybe_fail(5)  # second pass is clean (restart can proceed)
+
+
+def test_elastic_reshard_identity():
+    from repro_torch.distributed.elastic import reshard_state
+    state = {"w": torch.arange(8.0)}
+    sh = {"w": torch.device("cpu")}
+    out = reshard_state(state, sh)
+    np.testing.assert_array_equal(out["w"].numpy(), np.arange(8.0))
 
 
 def test_run_with_restarts_retries_then_gives_up():

@@ -104,3 +104,25 @@ def untimed(text: str) -> str:
     the lines that read process-wide counters."""
     return "\n".join(_TIMES.sub("", line) for line in text.splitlines()
                      if not any(k in line for k in _PROCESS_WIDE))
+
+
+def port_params(tree):
+    """The reference's parameter tree (nested dicts and lists of jax
+    arrays) carried into the port, on the CPU."""
+    import jax
+    from repro_torch.models import params_from_arrays
+    return params_from_arrays(jax.tree.map(np.asarray, tree))
+
+
+def assert_trees_close(port, ref, rtol, atol) -> None:
+    """Leaf by leaf, in the order both packages walk a tree (dict keys
+    sorted, ``None`` an empty subtree): the port's tree against the
+    reference's."""
+    import jax
+    from repro_torch.train.optimizer import tree_leaves
+    a, b = tree_leaves(port), jax.tree.leaves(ref)
+    assert len(a) == len(b)
+    for i, (x, y) in enumerate(zip(a, b)):
+        np.testing.assert_allclose(host(x), np.asarray(y), rtol=rtol,
+                                   atol=atol, err_msg=f"leaf {i}")
+
