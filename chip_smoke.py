@@ -109,12 +109,36 @@ Phases (each raises on failure; the script then exits non-zero):
      fp32. A profiler window follows serve_bulk and each cell's AdamW
      steps. Phases 7 and 8 print the launch counters before and after: no
      kernel of the repo is on these paths;
-  9. one JSON line listing the kernels, logreg_grad once at A1's shape and
-     once at a_shard_reg's, flash at phase 4's and phase 5's calls
-     (launches, max error, times: CUDA events over back-to-back calls, the
-     host's issue time, and the device time and the number of device
-     operations per call from the profiler; bound);
-  10. the result line ``{"ok": true, "device": {...}}``.
+  9. the mesh layer on a world of one: an NCCL process group of this
+     process alone and a 1x1 ('data', 'model') mesh on the card. (a) The
+     GCDA mesh forms (``analytics.multiply``/``similarity`` with a mesh,
+     ``regression_distributed``) on phase 3's A3, A2, A1 and a_shard_reg
+     inputs against their local forms (matmul 2e-4; cosine and logreg
+     rtol 3e-4 / atol 3e-5), the matmul, cosine_sim and logreg counters
+     set to 0 just before and required to move; (b) the three ``gredo``
+     cells (``launch.specs.build_cell``) at one rank's block of the
+     production 16x16 mesh (regression 262,144 x 512; similarity and
+     multiply 16,384 x 256 and 4,096 x 4,096 tiles), each step against its
+     plain version and timed beside its bound, plus a kernel row of each;
+     (c) OLMoE-1B-7B at full width and depth on the mesh forms (the
+     shard_map MoE over 'model', the sequence-sharded decode attention): a
+     prefill of 8 x 512 and 4 decode steps against the unsharded dense
+     path pinned to the mesh run's experts (max |diff| <= 2e-2 * max
+     |dense|; the flash counter must stay at 0: with a sequence-sharded
+     cache every attention call is the sharded one); (d) the dry-run
+     (``launch.dryrun``) of the three gredo cells and one LM train,
+     prefill and decode cell, one recsys and one GNN cell on both
+     production meshes, in two child processes on the CPU started before
+     phase 7 (the fake backend must not share a process with NCCL): every
+     cell must be ok; per cell its FLOPs and argument bytes per device and
+     its collective bytes are printed;
+  10. one JSON line listing the kernels, logreg_grad once at A1's shape
+     and once at a_shard_reg's, flash at phase 4's and phase 5's calls,
+     and the three GCDA kernels at phase 9's per-rank blocks (launches,
+     max error, times: CUDA events over back-to-back calls, the host's
+     issue time, and the device time and the number of device operations
+     per call from the profiler; bound);
+  11. the result line ``{"ok": true, "device": {...}}``.
 
 Nothing of JAX or of the JAX package is imported. Without a CUDA device,
 or without the rest of the repository beside it, the script fails before
@@ -2160,6 +2184,424 @@ def phase_gnn():
     reset_peak()
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the mesh layer on a world of one
+# ---------------------------------------------------------------------------
+
+# The dry-run cells phase 9 requires on both production meshes: the three
+# gredo cells and one cell of each family. Each mesh runs in a child
+# process of its own (the fake backend must not share a process with
+# NCCL), both started before phase 7 so they run beside it.
+DRYRUN_CELLS = ("gredo/gcda_regression", "gredo/gcda_similarity",
+                "gredo/gcda_multiply", "qwen2_1_5b/train_4k",
+                "qwen2_1_5b/prefill_32k", "qwen2_1_5b/decode_32k",
+                "wide_deep/serve_p99", "gatedgcn/full_graph_sm")
+DRYRUN_TIMEOUT_S = 900
+# One rank's block of the production 16x16 mesh (launch.specs placements)
+MESH_BLOCKS = {"gcda_regression": (262_144, 512),       # X over data
+               "gcda_similarity": (16_384, 256),        # X over data, Y model
+               "gcda_multiply": (4_096, 4_096)}         # X rows, Y columns
+
+
+def start_dryruns(out_dir: Path) -> list:
+    """The two dry-run children (16x16 and 2x16x16), on the CPU."""
+    import os
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
+    cells = [a for c in DRYRUN_CELLS for a in ("--cell", c)]
+    procs = []
+    for mesh, flag in (("16x16", []), ("2x16x16", ["--multi-pod"])):
+        log = open(out_dir / f"dryrun_{mesh}.log", "w")
+        procs.append((mesh, time.perf_counter(), log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *cells,
+             *flag, "--out", str(out_dir / "records")],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)))
+    return procs
+
+
+def world_of_one():
+    """An NCCL process group of this process alone and a 1x1 mesh on the
+    card over it."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.HashStore(),
+                            device_id=torch.device("cuda", 0))
+    return make_local_mesh(1, 1)
+
+
+def mesh_gcda(cap, mesh) -> dict:
+    """(a): the GCDA mesh forms on phase 3's A3, A2, A1 and a_shard_reg
+    inputs against their local forms; the kernels' counters must move."""
+    import torch
+    from repro_torch.core import analytics
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    X3, Y3 = cap.calls["matmul"][1]
+    X2, Y2 = cap.calls["cosine_sim"][1]
+    X1, y1, _ = cap.calls["logreg_grad/A1"][1]
+    Xs, ys, _ = cap.calls["logreg_grad/shard"][1]
+    forms = (
+        ("A3 multiply", "matmul",
+         lambda: analytics.multiply(X3, Y3, mesh=mesh).to_local(),
+         lambda: analytics.multiply(X3, Y3)),
+        ("A2 similarity", "cosine_sim",
+         lambda: analytics.similarity(X2, Y2, mesh=mesh).to_local(),
+         lambda: analytics.similarity(X2, Y2)),
+        ("A1 regression", "logreg_grad",
+         lambda: analytics.regression_distributed(X1, y1, mesh, iters=100),
+         lambda: analytics.regression(X1, y1, iters=100)),
+        ("a_shard_reg regression", "logreg_grad",
+         lambda: analytics.regression_distributed(Xs, ys, mesh, iters=50),
+         lambda: analytics.regression(Xs, ys, iters=50)))
+    reset_launch_counts()
+    outs = {label: fn() for label, _, fn, _ in forms}
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    say("phase 9 (a) launches on the mesh forms: " + json.dumps(launches))
+    for label, name, mesh_fn, local_fn in forms:
+        if launches[name] == 0:
+            raise AssertionError(f"(a) {label}: {name} never launched")
+        got, want = outs[label], local_fn()
+        tol = TOL["matmul" if name == "matmul" else "cosine_sim"]
+        if isinstance(got, tuple):
+            err = max(assert_close(f"(a) {label} weights", got[0], want[0],
+                                   *tol),
+                      assert_close(f"(a) {label} loss", got[1], want[1], *tol))
+        else:
+            err = assert_close(f"(a) {label}", got, want, *tol)
+        ms_mesh = wall_ms(mesh_fn)
+        ms_local = wall_ms(local_fn)
+        say(f"(a) {label}: mesh form {ms_mesh:.3f} ms, local form "
+            f"{ms_local:.3f} ms (wall, synchronised), max |mesh - local| "
+            f"{err:.3g}")
+    return launches
+
+
+def wall_ms(fn, reps: int = 3) -> float:
+    """Mean wall time of ``fn`` over ``reps`` synchronised calls."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def mesh_cells(mesh, card: str) -> list:
+    """(b): the three gredo cells at one rank's block of the production
+    16x16 mesh, each step against its plain version and timed; a kernel
+    row of each at that block."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.cosine_sim.ref import cosine_sim_ref
+    from repro_torch.kernels.logreg.ref import logreg_grad_ref
+    from repro_torch.kernels.matmul.ref import matmul_ref
+    from repro_torch.launch.specs import build_cell
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(9)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    n, d = MESH_BLOCKS["gcda_regression"]
+    m, f = MESH_BLOCKS["gcda_similarity"]
+    k = MESH_BLOCKS["gcda_multiply"][0]
+    args = {"gcda_regression": (randn(n, d),
+                                (randn(n) > 0).float(), randn(d) * 0.01),
+            "gcda_similarity": (randn(m, f), randn(m, f)),
+            "gcda_multiply": (randn(k, k), randn(k, k))}
+    cells = {s: build_cell("gredo", s, mesh) for s in MESH_BLOCKS}
+    reset_launch_counts()
+    outs = {s: cells[s].fn(*args[s]) for s in MESH_BLOCKS}
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    say("phase 9 (b) launches on the gredo cells: " + json.dumps(launches))
+
+    rows = []
+    # regression: this rank's share of the mean gradient and loss, one step
+    X, y, w = args["gcda_regression"]
+    share = n / cells["gcda_regression"].meta["rows"]
+    g, loss = logreg_grad_ref(X, y, w)
+    w1, l1 = outs["gcda_regression"]
+    err = max(assert_close("(b) gcda_regression weights", w1,
+                           w - 0.5 * g * share, *TOL["logreg_grad"]),
+              assert_close("(b) gcda_regression loss", l1, loss * share,
+                           *TOL["logreg_grad"]))
+    b = bound_ms((n * d + n + 2 * d + 1) * 4, 4.0 * n * d, "float32")
+    step_report("gcda_regression", f"{n}x{d} fp32", cells, args, err, b,
+                card)
+    kernel = wrapper("logreg_grad")
+    rows.append(report_row(
+        "logreg_grad/mesh_gcda_regression", "logreg_grad",
+        launches["logreg_grad"],
+        max(assert_close("(b) logreg_grad block", a, b_, *TOL["logreg_grad"])
+            for a, b_ in zip(kernel(X, y, w), (g, loss))),
+        lambda: kernel(X, y, w), lambda: logreg_grad_ref(X, y, w), b, None,
+        f"{n}x{d} (one rank's rows of the 16x16 mesh)"))
+    # similarity: a (data i, model j) tile, cast to bf16 as the cell does
+    X, Y = args["gcda_similarity"]
+    want = cosine_sim_ref(X, Y)
+    err = assert_close("(b) gcda_similarity", outs["gcda_similarity"]
+                       .to_local(), want.to(torch.bfloat16),
+                       *TOL["matmul_bf16"])
+    b = bound_ms(2 * m * f * 4 + m * m * 2, 2.0 * m * m * f, "float32")
+    step_report("gcda_similarity", f"{m}x{f} vs {m}x{f} fp32 -> bf16", cells,
+                args, err, b, card)
+    kernel = wrapper("cosine_sim")
+    b = bound_ms(2 * m * f * 4 + m * m * 4, 2.0 * m * m * f + 4.0 * m * f,
+                 "float32")
+    rows.append(report_row(
+        "cosine_sim/mesh_gcda_similarity", "cosine_sim",
+        launches["cosine_sim"],
+        assert_close("(b) cosine_sim block", kernel(X, Y), want,
+                     *TOL["cosine_sim"]),
+        lambda: kernel(X, Y), lambda: cosine_sim_ref(X, Y), b, None,
+        f"{m}x{f} vs {m}x{f} (one rank's tile of the 16x16 mesh)"))
+    del want
+    # multiply: X's row block @ Y's column block, cast to bf16
+    X, Y = args["gcda_multiply"]
+    want = matmul_ref(X, Y)
+    err = assert_close("(b) gcda_multiply", outs["gcda_multiply"].to_local(),
+                       want.to(torch.bfloat16), *TOL["matmul_bf16"])
+    b = bound_ms(2 * k * k * 4 + k * k * 2, 2.0 * k ** 3, "float32")
+    step_report("gcda_multiply", f"{k}x{k} @ {k}x{k} fp32 -> bf16", cells,
+                args, err, b, card)
+    kernel = wrapper("matmul")
+    b = bound_ms(3 * k * k * 4, 2.0 * k ** 3, "float32")
+    rows.append(report_row(
+        "matmul/mesh_gcda_multiply", "matmul", launches["matmul"],
+        assert_close("(b) matmul block", kernel(X, Y), want, *TOL["matmul"]),
+        lambda: kernel(X, Y), lambda: matmul_ref(X, Y), b,
+        time_ms(lambda: torch.matmul(X, Y))[0],
+        f"{k}x{k} @ {k}x{k} fp32 (one rank's tile of the 16x16 mesh)"))
+    return rows
+
+
+def step_report(shape, desc, cells, args, err, b, card) -> None:
+    ms = time_ms(lambda: cells[shape].fn(*args[shape]))[0]
+    say(f"(b) {shape} at {desc}: step {ms:.4f} ms (CUDA events), bound "
+        f"{b[0]:.4f} ms ({b[1]}) on {card}; max |step - plain| {err:.3g}")
+
+
+def mesh_moe(mesh) -> None:
+    """(c): OLMoE-1B-7B at full width and depth on the mesh forms (the
+    shard_map MoE over 'model', the sequence-sharded decode attention),
+    a prefill of 8 x 512 and 4 decode steps, against the unsharded dense
+    path pinned to the mesh run's experts."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+
+    dev = torch.device(DEVICE)
+    torch.cuda.empty_cache()
+    cfg, params = serve.build(MOE_ARCH, "full", dev)
+    on_mesh = dataclasses.replace(
+        cfg, mesh=mesh, mesh_dp=("data",), moe_ep_axis="model",
+        moe_impl="shard_map", kv_seq_shard="model")
+    dense = dataclasses.replace(cfg, attn_impl="dense")
+    prompts = torch.randint(0, cfg.vocab, (8, 512), device=dev,
+                            generator=torch.Generator(dev).manual_seed(1))
+    logits_trace(params, on_mesh, prompts, steps=1)          # warm-up
+    torch.cuda.synchronize()
+    reset_peak()
+    reset_launch_counts()
+    with RouteRecorder() as rm, StepTimer() as timer:
+        mesh_out, fed = logits_trace(params, on_mesh, prompts)
+    launches = launch_counts()
+    peak = peak_gib()
+    if launches["flash_attention"] != 0:
+        raise AssertionError("(c) the mesh path launched flash attention; "
+                             "with kv_seq_shard every attention call is the "
+                             "sequence-sharded one")
+    with RouteRecorder(replay=rm.routes):
+        dense_out, _ = logits_trace(params, dense, prompts, fed)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(mesh_out, dense_out)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"(c) mesh logits step {i}: not finite")
+        err = float((a.float() - b.float()).abs().max())
+        scale = float(b.float().abs().max())
+        worst = max(worst, err / scale)
+        if err > LOGIT_SCALE_TOL * scale:
+            raise AssertionError(
+                f"(c) step {i}: max |mesh - dense| {err} > "
+                f"{LOGIT_SCALE_TOL} * {scale}")
+    say(f"(c) {cfg.name} on the 1x1 mesh (shard_map MoE over 'model', "
+        f"sequence-sharded decode attention): prefill 8 x 512 "
+        f"{timer.ms[0]:.3f} ms, decode steps "
+        f"{', '.join(f'{t:.3f}' for t in timer.ms[1:])} ms (wall, "
+        f"synchronised), peak device memory {peak:.3f} GiB, launches "
+        f"{json.dumps(launches)}; logits (prefill + 4 decode steps) against "
+        f"the unsharded dense path pinned to its experts: max |diff| / max "
+        f"|dense| {worst:.4g} (limit {LOGIT_SCALE_TOL})")
+    del params
+    torch.cuda.empty_cache()
+
+
+class StepTimer:
+    """Wall time of each forward (prefill, then decode steps) run inside
+    it, each ending in a device synchronise."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import transformer as tf
+        self.ms: list = []
+        self._orig = tf.forward
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = self._orig(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        tf.forward = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as tf
+        tf.forward = self._orig
+
+
+MESH_RANKS = 8            # (e): the 2x4 mesh as gloo ranks on the one card
+
+
+def gloo_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """(e), one rank: the GCDA mesh forms on its CUDA blocks, each tile
+    and the regression held against the plain versions of its block."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import analytics
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.cosine_sim.ref import cosine_sim_ref
+    from repro_torch.kernels.matmul.ref import matmul_ref
+    from repro_torch.launch.mesh import make_local_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", rank=rank, world_size=world,
+                            store=dist.FileStore(store, world))
+    try:
+        mesh = make_local_mesh(2, 4)
+        dev = torch.device(DEVICE)
+        g = torch.Generator(dev).manual_seed(3)        # the same on every rank
+        X = torch.randn(4096, 200, device=dev, generator=g)
+        Y = torch.randn(200, 4096, device=dev, generator=g)
+        lab = (X[:, 0] > 0).float()
+        i, j = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+        rows, cols = X[2048 * i:2048 * (i + 1)], slice(1024 * j, 1024 * (j + 1))
+        reset_launch_counts()
+        z = analytics.multiply(X, Y, mesh=mesh).to_local()
+        s = analytics.similarity(X, X, mesh=mesh).to_local()
+        w, loss = analytics.regression_distributed(X, lab, mesh, iters=20)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        errs = {"multiply": assert_close(
+                    f"(e) rank {rank} multiply tile", z,
+                    matmul_ref(rows, Y[:, cols].contiguous()), *TOL["matmul"]),
+                "similarity": assert_close(
+                    f"(e) rank {rank} similarity tile", s,
+                    cosine_sim_ref(rows, X[cols]), *TOL["cosine_sim"])}
+        w_p, loss_p = analytics.regression(X, lab, iters=20, use_kernel=False)
+        errs["regression"] = max(
+            assert_close(f"(e) rank {rank} weights", w, w_p,
+                         *TOL["logreg_grad"]),
+            assert_close(f"(e) rank {rank} loss", loss, loss_p,
+                         *TOL["logreg_grad"]))
+        Path(out_dir, f"gloo_rank{rank}.json").write_text(json.dumps(
+            {"launches": counts, "errs": errs}))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_gloo(out_dir: Path) -> None:
+    """(e): the 2x4 mesh as 8 gloo processes on the one card, each running
+    the kernels on its CUDA blocks; gloo carries the collectives."""
+    import torch.multiprocessing as mp
+    store = out_dir / "gloo_store"
+    if store.exists():
+        store.unlink()
+    t0 = time.perf_counter()
+    mp.start_processes(gloo_rank, args=(MESH_RANKS, str(store),
+                                        str(out_dir)),
+                       nprocs=MESH_RANKS, start_method="spawn")
+    recs = [json.loads((out_dir / f"gloo_rank{r}.json").read_text())
+            for r in range(MESH_RANKS)]
+    for name in ("matmul", "cosine_sim", "logreg_grad"):
+        if any(r["launches"][name] == 0 for r in recs):
+            raise AssertionError(f"(e) a rank never launched {name}")
+    worst = {k: max(r["errs"][k] for r in recs) for k in recs[0]["errs"]}
+    say(f"(e) 2x4 mesh as {MESH_RANKS} gloo processes on the card: every "
+        f"rank's multiply and similarity tile and the regression match the "
+        f"plain versions (max |err| {json.dumps(worst)}); launches on rank "
+        f"0 {json.dumps(recs[0]['launches'])}; "
+        f"{time.perf_counter() - t0:.1f} s with the processes' start")
+
+
+def finish_dryruns(procs, out_dir: Path) -> None:
+    """(d): wait for the dry-run children; every required cell must be ok
+    on both meshes."""
+    failed, n_ok = [], 0
+    for mesh, t0, log, proc in procs:
+        try:
+            rc = proc.wait(timeout=max(
+                1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        secs = time.perf_counter() - t0
+        tail = (out_dir / f"dryrun_{mesh}.log").read_text().splitlines()
+        say(f"(d) dry-run on {mesh}: exit {rc}, {secs:.1f} s "
+            f"(started before phase 7); {tail[-1] if tail else ''}")
+        for cell in DRYRUN_CELLS:
+            arch, shape = cell.split("/")
+            path = out_dir / "records" / f"{arch}_{shape}_{mesh}.json"
+            rec = json.loads(path.read_text()) if path.exists() else {
+                "ok": False, "error": "no record"}
+            if not rec.get("ok"):
+                failed.append(f"{cell}/{mesh}: {rec.get('error')}")
+                continue
+            n_ok += 1
+            say(f"(d) {cell}/{mesh}: flops/device "
+                f"{rec['flops_per_device']:.4e}, argument GB/device "
+                f"{rec['memory']['argument_bytes'] / 1e9:.4f}, collective "
+                f"bytes {rec['collectives']['total_bytes']:.4e}, trace "
+                f"{rec['trace_s']} s, replicated ops "
+                f"{sum(rec['replicated_ops'].values())}")
+    say(f"(d) dry-run: {n_ok} ok, {len(failed)} failed")
+    if failed:
+        raise AssertionError("dry-run cells failed: " + "; ".join(failed))
+
+
+def phase_mesh(cap, procs, out_dir: Path) -> list:
+    import torch.distributed as dist
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    mesh = world_of_one()
+    try:
+        say(f"phase 9: the mesh layer on a world of one (NCCL, 1x1 mesh "
+            f"{mesh.mesh_dim_names}) on {card}")
+        mesh_gcda(cap, mesh)
+        rows = mesh_cells(mesh, card)
+        mesh_moe(mesh)
+    finally:
+        dist.destroy_process_group()
+    mesh_gloo(out_dir)
+    say(f"phase 9 (a)-(c), (e): {time.perf_counter() - t0:.1f} s")
+    finish_dryruns(procs, out_dir)
+    return rows
+
+
 def flash_rows(cap, arch=None) -> list:
     """The flash kernel's prefill and decode rows at a serving path's
     captured calls; ``arch`` names the rows of a path other than phase
@@ -2259,8 +2701,19 @@ def main() -> int:
     rows += flash_rows(phase_serve())
     rows += flash_rows(phase_moe_serve(), MOE_ARCH)
     phase_train()
-    phase_recsys()
-    phase_gnn()
+    out_dir = ROOT / "build" / "chip_smoke"
+    (out_dir / "records").mkdir(parents=True, exist_ok=True)
+    procs = start_dryruns(out_dir)
+    try:
+        phase_recsys()
+        phase_gnn()
+        rows += phase_mesh(cap, procs, out_dir)
+    finally:
+        for _, _, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
     rows += [embedding_bag_row()]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))

@@ -1,7 +1,7 @@
 """The paper's own workload config: the GredoDB engine over the M2Bench-style
 e-commerce scenario (not part of the assigned dry-run cells — the engine's
-GCDA kernels are driven by ``chip_smoke.py`` and the tests; the
-distributed GCDA forms wait for the mesh paths, ROADMAP queue 1 item 11)."""
+GCDA kernels are driven by ``chip_smoke.py`` and the tests; the GCDA cells
+below are built by ``launch.specs._db_cell`` and traced by the dry-run)."""
 
 FAMILY = "db"
 # Bonus dry-run cells (beyond the assigned ones): the paper's GCDA operators

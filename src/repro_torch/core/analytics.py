@@ -5,9 +5,11 @@
   attributes from qualifying records into multi-hot / count features). Both
   return float32 tensors on the requested device.
 * Analytical operators: MULTIPLY / SIMILARITY / REGRESSION, block-tiled
-  CUDA kernels on the card (their plain PyTorch versions on the CPU). The
-  JAX package's device-mesh forms are not ported yet (ROADMAP queue 1,
-  item 11).
+  CUDA kernels on the card (their plain PyTorch versions on the CPU). With
+  a mesh (a ``DeviceMesh`` with axes 'data' and 'model' over the current
+  process group) each rank runs the same kernel on its own block and the
+  ranks meet in ``torch.distributed`` collectives — the distributed form
+  of the paper's block scheduler.
 * ``volcano``: a literal tuple-at-a-time volcano implementation of the same
   operators on host numpy arrays — the ablation baseline (GredoDB-S /
   GredoDB-D rely on volcano-model execution for GCDA in §7.2).
@@ -23,10 +25,6 @@ from ..kernels.cosine_sim.ops import cosine_sim as _cosine_op
 from ..kernels.logreg.ops import logreg_grad as _logreg_op
 from ..kernels.matmul.ops import matmul as _matmul_op
 from .storage import DictColumn, RaggedColumn, Table
-
-_MESH_TODO = ("device-mesh GCDA is not ported yet (ROADMAP queue 1, item "
-              "11: the mesh paths of core/analytics.py)")
-
 
 # ---------------------------------------------------------------------------
 # Matrix generation (G in Eq. 5)
@@ -145,21 +143,40 @@ def flops_estimate(op: str, shapes: Sequence[Sequence[int]],
     return 0.0
 
 
+def _block(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """This rank's block of ``t``, contiguous: the kernels read rows of a
+    contiguous matrix, so a column block (Y's over 'model') is copied once
+    here; a row block is a contiguous view already."""
+    from ..distributed.sharding import local_block
+    return local_block(t, mesh, spec).contiguous()
+
+
 def multiply(x: torch.Tensor, y: torch.Tensor, *, mesh: Optional[object] = None,
              use_kernel: bool | None = None) -> torch.Tensor:
-    """MULTIPLY: Z = X·Y via the tiled matmul kernel."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
-    return _matmul_op(x, y, use_kernel=use_kernel)
+    """MULTIPLY: Z = X·Y via the tiled matmul kernel; with a mesh, Z is
+    tiled (i over 'data', j over 'model') and each rank runs the kernel on
+    its X row block and Y column block. Returns a DTensor with placements
+    (Shard(0), Shard(1)); ``full_tensor()`` gathers it."""
+    if mesh is None:
+        return _matmul_op(x, y, use_kernel=use_kernel)
+    from ..distributed.sharding import P, from_blocks
+    z = _matmul_op(_block(x, mesh, P("data", None)),
+                   _block(y, mesh, P(None, "model")), use_kernel=use_kernel)
+    return from_blocks(z, mesh, P("data", "model"))
 
 
 def similarity(x: torch.Tensor, y: torch.Tensor, *,
                mesh: Optional[object] = None,
                use_kernel: bool | None = None) -> torch.Tensor:
-    """SIMILARITY: pairwise cosine scores via the fused kernel."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
-    return _cosine_op(x, y, use_kernel=use_kernel)
+    """SIMILARITY: pairwise cosine scores via the fused kernel; with a mesh,
+    rank (i, j) scores X's row block i ('data') against Y's row block j
+    ('model') and holds tile (i, j) of the (Shard(0), Shard(1)) DTensor."""
+    if mesh is None:
+        return _cosine_op(x, y, use_kernel=use_kernel)
+    from ..distributed.sharding import P, from_blocks
+    s = _cosine_op(_block(x, mesh, P("data", None)),
+                   _block(y, mesh, P("model", None)), use_kernel=use_kernel)
+    return from_blocks(s, mesh, P("data", "model"))
 
 
 def regression(x: torch.Tensor, y: torch.Tensor, *, iters: int = 100,
@@ -180,10 +197,40 @@ def regression(x: torch.Tensor, y: torch.Tensor, *, iters: int = 100,
     return w, loss
 
 
-def regression_distributed(x, y, mesh, *, iters: int = 50, lr: float = 0.5,
-                           l2: float = 1e-4):
-    """Data-parallel REGRESSION over a device mesh — not ported yet."""
-    raise NotImplementedError(_MESH_TODO)
+def regression_distributed(x: torch.Tensor, y: torch.Tensor, mesh, *,
+                           iters: int = 50, lr: float = 0.5, l2: float = 1e-4,
+                           use_kernel: bool | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Data-parallel REGRESSION: rows over 'data'; each rank runs the
+    gradient kernel on its rows, and one all-reduce per iteration sums the
+    partial gradients and losses (the paper's "aggregating contributions
+    from each partition in parallel"). Returns (weights, loss) on every
+    rank, as :func:`regression`.
+
+    As the JAX package does, the rows are padded with zeros up to a
+    multiple of the 'data' size and the sums divided by the real row count
+    ``n``: a pad row adds nothing to the gradient but ``softplus(0) = log
+    2`` to the loss sum, so for ``n % ranks != 0`` the loss is ``(sum over
+    real rows + pad * log 2) / n``, as the reference's."""
+    import torch.nn.functional as F
+    from ..distributed.sharding import P, axis_size, psum
+
+    n, d = x.shape
+    pad = (-n) % axis_size(mesh, "data")
+    y = y.to(device=x.device, dtype=torch.float32)
+    xp = F.pad(x, (0, 0, 0, pad)) if pad else x
+    yp = F.pad(y, (0, pad)) if pad else y
+    xl = _block(xp, mesh, P("data", None))
+    yl = _block(yp, mesh, P("data"))
+    share = xl.shape[0] / n          # the kernel's means are over local rows
+    w = torch.zeros((d,), dtype=torch.float32, device=x.device)
+    loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    for _ in range(iters):
+        g, loss = _logreg_op(xl, yl, w, use_kernel=use_kernel)
+        gl = psum(torch.cat([g, loss[None]]) * share, mesh, "data")
+        g, loss = gl[:d], gl[d]
+        w = w - lr * (g + l2 * w)
+    return w, loss
 
 
 # ---------------------------------------------------------------------------

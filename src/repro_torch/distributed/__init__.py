@@ -1,3 +1,3 @@
-"""Distribution layer of the port: fault-tolerance utilities and elastic
-moves of live state between devices. The mesh sharding rules come with
-ROADMAP queue 1 item 11."""
+"""Distribution layer of the port: the mesh sharding rules and per-rank
+collectives (``sharding``), fault-tolerance utilities (``fault``) and
+elastic moves of live state between devices and meshes (``elastic``)."""

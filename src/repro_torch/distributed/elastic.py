@@ -5,8 +5,10 @@ cluster is: drain -> checkpoint -> rebuild -> restore onto the new devices.
 ``reshard_state`` does the same transformation for a live tree (host-gather
 then a copy to each leaf's new device), used when the resize happens
 without going through disk. Mirrors ``repro.distributed.elastic``; a
-sharding is a ``torch.device`` (or its name) here. The mesh form (a
-sharded placement over a process group) waits for ROADMAP queue 1, item 11.
+sharding is a ``torch.device`` (or its name), or a mesh placement: a
+``(DeviceMesh, placements)`` pair (placements as
+``distributed.sharding.placements`` gives them), which places the leaf as
+a DTensor with ``distribute_tensor``.
 """
 from __future__ import annotations
 
@@ -20,24 +22,37 @@ Tree = Any
 
 
 def host_gather(state: Tree) -> Tree:
-    """Every leaf as a host numpy copy."""
-    return tree_map(lambda x: x.detach().cpu().numpy().copy(), state)
+    """Every leaf as a host numpy copy (a DTensor's full value)."""
+    from torch.distributed.tensor import DTensor
+
+    def one(x):
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
+        return x.detach().cpu().numpy().copy()
+    return tree_map(one, state)
 
 
-def _device(s) -> torch.device:
+def _place(a, s):
     if isinstance(s, (torch.device, str)):
-        return torch.device(s)
-    raise NotImplementedError(
-        f"resharding onto {type(s).__name__} (a mesh placement) is not "
-        "ported yet (ROADMAP queue 1, item 11)")
+        return torch.from_numpy(a).to(torch.device(s))
+    from torch.distributed.tensor import distribute_tensor
+    mesh, placements = s
+    return distribute_tensor(
+        torch.from_numpy(a).to(mesh.device_type), mesh, placements)
+
+
+def _is_sharding(s) -> bool:
+    return (isinstance(s, tuple) and len(s) == 2
+            and hasattr(s[0], "mesh_dim_names"))
 
 
 def reshard_state(state: Tree, new_shardings: Tree) -> Tree:
-    """``state`` with each leaf copied from the host onto the device at the
-    same place in ``new_shardings`` (a tree of ``torch.device``s)."""
+    """``state`` with each leaf copied from the host onto the sharding at
+    the same place in ``new_shardings``: a device, or a (mesh, placements)
+    pair, which makes the leaf a DTensor (a DTensor leaf of ``state`` is
+    gathered whole first)."""
     host = host_gather(state)
-    return tree_map(lambda a, s: torch.from_numpy(a).to(_device(s)),
-                    host, new_shardings)
+    return tree_map(_place, host, new_shardings, is_leaf=_is_sharding)
 
 
 def rebalanced_batch_size(global_batch: int, old_dp: int, new_dp: int) -> int:

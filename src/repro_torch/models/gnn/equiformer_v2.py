@@ -11,8 +11,9 @@ in-place write. The per-edge Wigner blocks are computed once per forward,
 as in the reference.
 
 ``channel_shard_axis`` (the reference's channel sharding over a mesh
-axis) is the identity when empty and otherwise raises: it waits for
-ROADMAP queue 1, item 11.
+axis) pins the node features' channel dim to that axis of their mesh when
+they are DTensors (the dry-run); it changes no value, and plain tensors
+pass unchanged.
 
 Config (assigned): n_layers=12, d_hidden=128, l_max=6, m_max=2, n_heads=8.
 """
@@ -137,11 +138,13 @@ def _so2_conv(feat_edge, so2_w, radial, msets, order, C):
 
 
 def _cshard(cfg: EquiformerV2Config, x):
-    if not cfg.channel_shard_axis:
+    """Layout pin: the last (channel) dim over ``channel_shard_axis``."""
+    from torch.distributed.tensor import DTensor
+    if not cfg.channel_shard_axis or not isinstance(x, DTensor):
         return x
-    raise NotImplementedError(
-        f"channel sharding over {cfg.channel_shard_axis!r} is not ported yet "
-        "(ROADMAP queue 1, item 11)")
+    from ...distributed.sharding import P, placements
+    spec = P(*([None] * (x.ndim - 1) + [cfg.channel_shard_axis]))
+    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
 
 
 def forward(params, g: GraphBatch, cfg: EquiformerV2Config):

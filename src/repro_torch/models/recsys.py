@@ -21,9 +21,9 @@ place of JAX:
     ``random_batch`` draws the reference's numpy batch and puts it on the
     card unless the caller names another device.
 
-Not ported yet: ``retrieval_step_distributed`` (the sharded hierarchical
-top-k) and ``build_cell`` (the mesh cell builder) wait for ROADMAP queue
-1, item 11, and raise ``NotImplementedError``.
+``retrieval_step_distributed`` is the reference's hierarchical top-k as
+a per-rank program over a ``DeviceMesh``, and ``build_cell`` the dry-run
+cell builder (``launch.specs``).
 """
 from __future__ import annotations
 
@@ -149,9 +149,32 @@ def retrieval_step(params, dense, sparse_idx, candidates, cfg: WideDeepConfig,
 
 def retrieval_step_distributed(params, dense, sparse_idx, candidates,
                                cfg: WideDeepConfig, mesh, top_k: int = 100):
-    raise NotImplementedError(
-        "retrieval_step_distributed (the sharded hierarchical top-k) is not "
-        "ported yet (ROADMAP queue 1, item 11)")
+    """Hierarchical top-k retrieval over a mesh. The candidates are bf16
+    and split over ALL mesh axes (major to minor); each rank scores its
+    block against the (replicated, tiny) query tower output, takes a LOCAL
+    top-k, shifts its ids by its linear rank times the block size, and the
+    winners of every rank are merged after one all-gather over the whole
+    mesh. Ties go to the lower id, as ``lax.top_k`` gives them. Returns
+    (values, ids), the same on every rank."""
+    from ..distributed.sharding import (P, all_gather, axis_index,
+                                        axis_names, local_block)
+
+    q = user_tower(params, dense, sparse_idx, cfg)
+    qn = (q * torch.rsqrt(torch.sum(q * q, -1, keepdim=True) + 1e-9)
+          ).to(torch.bfloat16)
+    axes = axis_names(mesh)
+    per = candidates.shape[0] // mesh.size()
+    cand_l = local_block(candidates, mesh, P(axes, None))
+    cn = cand_l * torch.rsqrt(
+        torch.sum(cand_l.float() ** 2, -1, keepdim=True) + 1e-9
+    ).to(torch.bfloat16)
+    scores = qn.float() @ cn.float().T               # fp32 accumulation
+    v, i = _top_k(scores, min(top_k, per))           # local winners
+    i = i + axis_index(mesh, axes) * per             # global ids
+    v_all = all_gather(v, mesh, axes, dim=1)
+    i_all = all_gather(i, mesh, axes, dim=1)
+    vg, sel = _top_k(v_all, top_k)                   # merge
+    return vg, i_all.gather(1, sel)
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +201,108 @@ def random_batch(cfg: WideDeepConfig, batch: int, seed: int = 0,
 
 
 def build_cell(arch: str, shape_name: str, spec: dict, mesh, Cell):
-    raise NotImplementedError(
-        f"build_cell ({arch}/{shape_name}, the mesh cell builder) is not "
-        "ported yet (ROADMAP queue 1, item 11)")
+    """The dry-run cell of a Wide & Deep shape (``launch.specs``): tables
+    row-sharded over 'model' (or, with ``REPRO_RETRIEVAL_OPT=1`` on a
+    retrieval cell, over 'model' and the data axes), dense layers
+    replicated, the batch over the data axes."""
+    import os
+
+    from .. import configs as configs_pkg
+    from ..distributed import sharding as shr
+    from ..launch.specs import (TensorSpec, eval_shape, materialize,
+                                n_elements)
+    from ..train.loop import value_and_grad
+    from ..train.optimizer import AdamWConfig, adamw_init, adamw_update
+
+    P = shr.P
+    cfg = configs_pkg.get(arch).config()
+    dp = shr.dp_axes(mesh)
+    tp = shr.axis_size(mesh, "model")
+    params_shape = eval_shape(
+        lambda: init_params(torch.Generator().manual_seed(0), cfg))
+    dp_total = 1
+    for a in dp:
+        dp_total *= shr.axis_size(mesh, a)
+
+    if (os.environ.get("REPRO_RETRIEVAL_OPT") == "1"
+            and spec["kind"] == "retrieval"
+            and cfg.embed_dim % dp_total == 0):
+        # 2-D table sharding (vocab x embed-dim)
+        tables_spec = P(None, "model", dp)
+    else:
+        tables_spec = P(None, "model" if cfg.vocab_per_field % tp == 0
+                        else None, None)
+    pspecs = {
+        "tables": tables_spec,
+        "wide": P("model" if cfg.wide_hash % tp == 0 else None),
+        "mlp": [{"w": P(), "b": P()} for _ in params_shape["mlp"]],
+        "head": P(),
+        "cand_proj": P(),
+    }
+    pshard = shr.tree_shardings(pspecs, mesh)
+
+    B = spec["batch"]
+    f32, i32 = torch.float32, torch.int32
+    dense_s = TensorSpec((B, cfg.n_dense), f32)
+    sparse_s = TensorSpec((B, cfg.n_sparse), i32)
+    bsh = shr.placements(P(dp, None), mesh)
+    n_params = n_elements(params_shape)
+    meta = {"n_params": n_params, "batch": B}
+
+    if spec["kind"] == "train":
+        opt_shape = eval_shape(lambda: adamw_init(materialize(params_shape)))
+        ospecs = shr.opt_state_specs(pspecs, params_shape, mesh)
+        oshard = shr.tree_shardings(ospecs, mesh)
+        opt_cfg = AdamWConfig()
+
+        def train_step(params, opt_state, batch):
+            lval, grads = value_and_grad(loss_fn, params, batch, cfg)
+            params, opt_state = adamw_update(grads, opt_state, params,
+                                             opt_cfg)
+            return params, opt_state, lval
+
+        args = (params_shape, opt_shape,
+                {"dense": dense_s, "sparse": sparse_s,
+                 "labels": TensorSpec((B,), f32)})
+        in_sh = (pshard, oshard,
+                 {"dense": bsh, "sparse": bsh,
+                  "labels": shr.placements(P(dp), mesh)})
+        meta["fwd_bwd"] = True
+        return Cell(arch, shape_name, "recsys_train", train_step, args, in_sh,
+                    donate_argnums=(0, 1), meta=meta)
+
+    if spec["kind"] == "retrieval":
+        n_cand = spec["n_candidates"]
+        if os.environ.get("REPRO_RETRIEVAL_OPT") == "1":
+            n_cand = -(-n_cand // 512) * 512   # pad to a shardable multiple
+            cand_s = TensorSpec((n_cand, cfg.tower_dim), torch.bfloat16)
+
+            def retr(params, dense, sparse, cands):
+                return retrieval_step_distributed(params, dense, sparse,
+                                                  cands, cfg, mesh)
+
+            cand_sh = shr.placements(P(shr.axis_names(mesh), None), mesh)
+        else:
+            cand_s = TensorSpec((n_cand, cfg.tower_dim), f32)
+
+            def retr(params, dense, sparse, cands):
+                return retrieval_step(params, dense, sparse, cands, cfg)
+
+            cand_sh = shr.placements(P(dp, None), mesh)
+
+        args = (params_shape, dense_s, sparse_s, cand_s)
+        in_sh = (pshard, shr.placements(P(), mesh),
+                 shr.placements(P(), mesh), cand_sh)
+        meta.update({"fwd_bwd": False, "n_candidates": n_cand})
+        return Cell(arch, shape_name, "recsys_retrieval", retr, args, in_sh,
+                    meta=meta)
+
+    def serve(params, dense, sparse):
+        return serve_step(params, dense, sparse, cfg)
+
+    args = (params_shape, dense_s, sparse_s)
+    in_sh = (pshard, bsh, bsh)
+    meta["fwd_bwd"] = False
+    return Cell(arch, shape_name, "recsys_serve", serve, args, in_sh,
+                meta=meta)
+

@@ -28,9 +28,17 @@ place of JAX:
   * ``loss_fn`` is the reference's sequence-chunked cross-entropy;
     gradients come from ``torch.autograd`` (``train.loop``).
 
-Not ported yet: the sharded decode attention, the shard_map MoE and the
-mesh hooks (ROADMAP queue 1, item 11); each raises
-``NotImplementedError``.
+Mesh forms (``cfg.mesh``, a ``DeviceMesh`` over the current process
+group): every rank runs the same forward on the full activations, and the
+reference's shard_map blocks become per-rank programs on each rank's block
+(``distributed.sharding.local_block``) that meet in ``torch.distributed``
+collectives and hand back the full tensor: the sequence-sharded decode
+attention (:func:`_dist_decode_attention`) and the expert-parallel MoE
+(:func:`_moe_block_shard_map`). Given DTensors (the dry-run), the same
+blocks are the DTensors' local shards and the results DTensors again;
+attention, which is independent per batch row and head, then runs on the
+local shards too (:func:`_attend`), and :func:`_ep_constraint` pins the MoE
+buffers' layout.
 """
 from __future__ import annotations
 
@@ -76,12 +84,12 @@ class TransformerConfig:
     dtype: Any = torch.bfloat16
     ce_chunk: int = 256              # cross-entropy sequence chunking
     moe_groups: int = 1              # dispatch groups
-    # distribution hooks (not ported: set, they raise)
-    mesh: Any = None
-    mesh_dp: tuple = ()
-    kv_seq_shard: str = ""
-    moe_ep_axis: str = ""
-    moe_impl: str = "gspmd"
+    # distribution hooks (set by launch/specs.py; None/empty for local runs)
+    mesh: Any = None                 # DeviceMesh for the per-rank paths
+    mesh_dp: tuple = ()              # data-parallel axis names
+    kv_seq_shard: str = ""           # mesh axis sharding the KV-cache seq dim
+    moe_ep_axis: str = ""            # mesh axis of the experts (EP)
+    moe_impl: str = "gspmd"          # "gspmd" | "shard_map"
 
     @property
     def head_dim(self) -> int:
@@ -116,27 +124,6 @@ class TransformerConfig:
         return self.param_count() - inactive
 
 
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
-                              f"item {item})")
-
-
-def _check_ported(cfg: TransformerConfig) -> None:
-    if cfg.is_moe and cfg.moe_impl == "shard_map" and cfg.moe_ep_axis:
-        _moe_block_shard_map(cfg)
-    if cfg.mesh is not None or cfg.kv_seq_shard or cfg.moe_ep_axis:
-        _dist_decode_attention(cfg)
-
-
-def _moe_block_shard_map(cfg: TransformerConfig):
-    _not_ported(f"the shard_map MoE block ({cfg.name}, expert axis "
-                f"{cfg.moe_ep_axis!r})", 11)
-
-
-def _dist_decode_attention(cfg: TransformerConfig):
-    _not_ported("sharded decode attention and the mesh hooks", 11)
-
-
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
@@ -146,7 +133,6 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig) -> Params:
     """fp32 parameters stacked over layers, drawn from ``gen`` on
     ``gen.device`` (the counterpart of the reference's ``init_params``:
     same shapes and scales, other random numbers)."""
-    _check_ported(cfg)
     d, h, kv, dh, f, v, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                              cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.n_layers)
     dev = gen.device
@@ -323,13 +309,66 @@ def _write_cache(c, new, cache_lengths):
     """Write ``new`` (B, Hk, S, dh) into the layer cache ``c`` (B, Hk, M,
     dh) in place at per-row offsets ``cache_lengths``. The start is clamped
     into [0, M - S], as ``lax.dynamic_update_slice`` clamps it in the
-    reference (torch indexing would raise instead)."""
+    reference (torch indexing would raise instead). A DTensor cache is
+    written shard by shard (:func:`_write_cache_shards`)."""
+    if _is_dtensor(c):
+        return _write_cache_shards(c, new, cache_lengths)
     B, _, M, _ = c.shape
     S = new.shape[2]
     start = cache_lengths.clamp(0, M - S)
     pos = start[:, None] + torch.arange(S, device=c.device)[None, :]
     rows = torch.arange(B, device=c.device)[:, None]
     c[rows, :, pos] = new.transpose(1, 2)       # indexed dims first: (B,S,Hk,dh)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _as_dtensor(t, mesh):
+    """``t`` as a DTensor on ``mesh``: itself, or a replicated one."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _write_cache_shards(c, new, cache_lengths):
+    """The cache write on each rank's shard of a DTensor cache ``c``
+    sharded over batch, kv heads or positions: ``new`` and the lengths are
+    brought to the cache's batch and head layout, and a rank whose
+    position block holds none of a row's new positions writes nothing of
+    it."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = c.device_mesh
+    cpl = list(c.placements)
+    npl = [p if p in (Shard(0), Shard(1)) else Replicate() for p in cpl]
+    lpl = [p if p == Shard(0) else Replicate() for p in cpl]
+    cl = c.to_local()
+    nl = _as_dtensor(new, mesh).redistribute(mesh, npl).to_local()
+    ll = _as_dtensor(cache_lengths, mesh).redistribute(mesh, lpl).to_local()
+    if Shard(2) not in cpl:
+        _write_cache(cl, nl, ll)
+        return c
+    M = c.shape[2]
+    Bl, _, Ml, _ = cl.shape
+    S = nl.shape[2]
+    block = 0                       # this rank's position block, major first
+    for j, p in enumerate(cpl):
+        if p == Shard(2):
+            block = block * mesh.size(j) + mesh.get_local_rank(j)
+    pos = (ll.clamp(0, M - S)[:, None]
+           + torch.arange(S, device=cl.device)) - block * Ml
+    mine = (pos >= 0) & (pos < Ml)
+    # positions of other blocks land in a spare slot past the block's end
+    ext = torch.cat([cl, cl[:, :, :1]], 2)
+    rows = torch.arange(Bl, device=cl.device)[:, None]
+    ext[rows, :, torch.where(mine, pos, Ml)] = nl.transpose(1, 2)
+    cl.copy_(ext[:, :, :Ml])
+    return c
 
 
 class Route(NamedTuple):
@@ -384,43 +423,177 @@ def _moe_block(x, router_w, w_in, w_gate, w_out, cfg: TransformerConfig):
     reference's scatter of the kept rows). Combine: each token's k expert
     outputs times their gates, summed in ascending expert order in
     ``cfg.dtype``."""
-    G, T, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
     r = _moe_route(x, router_w, cfg)
+    out = _moe_experts(x, r, w_in, w_gate, w_out, cfg, 0)
+    return out, _moe_aux(r, cfg)
+
+
+def _moe_experts(x, r: Route, w_in, w_gate, w_out, cfg: TransformerConfig,
+                 base: int):
+    """The routed tokens' outputs through the experts base..base+E_l
+    (``w_in`` holds E_l of them): each token's kept assignments to those
+    experts, times their gates, summed in ascending expert order; the
+    others add nothing."""
+    G, T, d = x.shape
+    k, E_l = cfg.top_k, w_in.shape[0]
     C, dt, dev = r.capacity, cfg.dtype, x.device
 
     c = torch.arange(C, device=dev)
-    src = r.seg_start[..., None] + c                           # (G, E, C)
-    filled = c < (r.seg_end - r.seg_start)[..., None]
-    src = torch.where(filled, src, 0).reshape(G, E * C)
-    tok = (r.order.gather(-1, src) // k)                       # (G, E*C)
+    seg_start = r.seg_start[:, base:base + E_l]
+    src = seg_start[..., None] + c                             # (G, E_l, C)
+    filled = c < (r.seg_end[:, base:base + E_l] - seg_start)[..., None]
+    src = torch.where(filled, src, 0).reshape(G, E_l * C)
+    tok = (r.order.gather(-1, src) // k)                       # (G, E_l*C)
     rows = torch.arange(G, device=dev)[:, None]
-    xe = torch.where(filled.reshape(G, E * C, 1), x[rows, tok], 0)
-    xe = xe.reshape(G, E, C, d)
+    xe = torch.where(filled.reshape(G, E_l * C, 1), x[rows, tok], 0)
+    xe = _ep_constraint(xe.reshape(G, E_l, C, d), cfg, expert_sharded=True)
 
-    h = xe @ w_in.to(dt)                                       # (G, E, C, f)
+    h = xe @ w_in.to(dt)                                       # (G, E_l, C, f)
     if w_gate is not None:
         h = F.silu(xe @ w_gate.to(dt)) * h
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
-    ye = (h @ w_out.to(dt)).reshape(G, E * C, d)
+    ye = _ep_constraint(h @ w_out.to(dt), cfg, expert_sharded=False)
+    ye = ye.reshape(G, E_l * C, d)
 
     # position of each flat assignment in the sorted order; a token's k
     # positions, ascending, are its experts in ascending order
     at = torch.empty_like(r.order).scatter_(
         -1, r.order, torch.arange(T * k, device=dev).expand(G, T * k))
     at = at.reshape(G, T, k).sort(-1).values.reshape(G, T * k)
-    slot = torch.where(r.keep, r.sorted_e * C + r.pos, 0).gather(-1, at)
-    gate = torch.where(r.keep, r.sorted_gate, 0).gather(-1, at)
+    mine = r.keep
+    if E_l != cfg.n_experts:
+        mine = mine & (r.sorted_e >= base) & (r.sorted_e < base + E_l)
+    slot = torch.where(mine, (r.sorted_e - base) * C + r.pos, 0).gather(-1, at)
+    gate = torch.where(mine, r.sorted_gate, 0).gather(-1, at)
     parts = (ye[rows, slot] * gate[..., None]).reshape(G, T, k, d)
     out = parts[:, :, 0]
     for i in range(1, k):
         out = out + parts[:, :, i]
-    # load-balancing auxiliary loss (Switch): E * sum(fraction * prob)
-    first = r.idx[..., :1] == torch.arange(E, device=dev)
+    return out
+
+
+def _moe_aux(r: Route, cfg: TransformerConfig):
+    """Load-balancing auxiliary loss (Switch): E * sum(fraction * prob)."""
+    E = cfg.n_experts
+    first = r.idx[..., :1] == torch.arange(E, device=r.idx.device)
     me = first.float().mean((0, 1))
     ce = torch.softmax(r.logits, -1).mean((0, 1))
-    return out, E * (me * ce).sum()
+    return E * (me * ce).sum()
+
+
+def _shard_out(o, like, mesh, spec):
+    """The full result of the per-rank blocks ``o`` under ``spec``: a
+    DTensor of them when the input ``like`` was one, else the blocks
+    gathered over the axes of ``spec``'s first entry (the batch's)."""
+    from ..distributed.sharding import all_gather, from_blocks
+    if _is_dtensor(like):
+        return from_blocks(o, mesh, spec)
+    return all_gather(o, mesh, spec[0], dim=0)
+
+
+def _moe_block_shard_map(x, router_w, w_in, w_gate, w_out,
+                         cfg: TransformerConfig):
+    """Expert-parallel MoE as a per-rank program. The activations are
+    replicated over the expert axis ``cfg.moe_ep_axis``, so each rank
+    routes its data block's tokens itself and keeps the assignments to its
+    own E/n experts (zero dispatch traffic); the one collective is the SUM
+    of the (G, T, d) partial outputs over the expert axis. ``aux`` is
+    averaged over the data-parallel axes. Capacity comes from the group's T,
+    as in :func:`_moe_block`."""
+    from ..distributed.sharding import (P, axis_index, local_block, pmean,
+                                        psum)
+
+    mesh, axis = cfg.mesh, cfg.moe_ep_axis
+    dp = tuple(cfg.mesh_dp) or None
+    xl = local_block(x, mesh, P(dp, None, None))
+    w = [None if t is None else local_block(t, mesh, P(axis, None, None))
+         for t in (w_in, w_gate, w_out)]
+    base = axis_index(mesh, axis) * w[0].shape[0]
+    r = _moe_route(xl, local_block(router_w, mesh, P()), cfg)
+    out = psum(_moe_experts(xl, r, *w, cfg, base), mesh, axis)
+    aux = _moe_aux(r, cfg)
+    if dp:
+        aux = pmean(aux, mesh, dp)     # average the balance stat over DP
+    return _shard_out(out, x, mesh, P(dp, None, None)), aux
+
+
+def _ep_constraint(x, cfg: TransformerConfig, expert_sharded: bool):
+    """(G, E, C, d) layout pin: G over DP; E over the EP axis pre-einsum,
+    replicated (token layout) post-einsum. It moves a DTensor to that
+    layout and changes no value; a plain tensor passes unchanged."""
+    if not cfg.moe_ep_axis or cfg.mesh is None or not _is_dtensor(x):
+        return x
+    from ..distributed.sharding import P, placements
+    spec = P(tuple(cfg.mesh_dp) or None,
+             cfg.moe_ep_axis if expert_sharded else None, None, None)
+    return x.redistribute(cfg.mesh, placements(spec, cfg.mesh))
+
+
+def _dist_decode_attention(q, k, v, lengths, cfg: TransformerConfig):
+    """Decode attention with the KV cache's SEQUENCE dim sharded over
+    ``cfg.kv_seq_shard``, as a per-rank program: each rank computes the
+    partial online-softmax stats (m, l, acc) of its KV block, and the
+    ranks merge them with one MAX and two SUM all-reduces over that axis
+    (a row no rank attends to gives zeros).
+
+    q: (B, H, S, dh) batch-sharded over ``cfg.mesh_dp``; k/v: (B, Hk, M,
+    dh) batch- and seq-sharded; lengths: (B,). The key at local position
+    j of rank r sits at global position r * M_local + j."""
+    from ..distributed.sharding import (P, axis_index, local_block, pmax,
+                                        psum)
+
+    mesh, axis = cfg.mesh, cfg.kv_seq_shard
+    dp = tuple(cfg.mesh_dp) or None
+    B, H, S, Dh = q.shape
+    Hk = k.shape[1]
+    g = H // Hk
+    qb = local_block(q, mesh, P(dp, None, None, None))
+    kb = local_block(k, mesh, P(dp, None, axis, None))
+    vb = local_block(v, mesh, P(dp, None, axis, None))
+    lb = local_block(lengths, mesh, P(dp))
+    Bl, Ml, dev = qb.shape[0], kb.shape[2], qb.device
+
+    qg = qb.reshape(Bl, Hk, g, S, Dh)
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qg.float(), kb.float()) * Dh ** -0.5
+    kpos = axis_index(mesh, axis) * Ml + torch.arange(Ml, device=dev)
+    lb_b = lb[:, None, None, None, None]
+    qpos = lb_b - S + torch.arange(S, device=dev)[:, None]
+    mask = (kpos < lb_b) & (qpos >= kpos)
+    s = torch.where(mask, s, -1e30)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m) * mask
+    l = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bkgqc,bkcd->bkgqd", p.to(vb.dtype).float(), vb.float())
+    m_g = pmax(m, mesh, axis)
+    corr = torch.exp(m - m_g)
+    l_g = psum(l * corr, mesh, axis)
+    acc_g = psum(acc * corr, mesh, axis)
+    o = (acc_g / torch.where(l_g == 0.0, 1.0, l_g)).reshape(Bl, H, S, Dh)
+    return _shard_out(o.to(qb.dtype), q, mesh, P(dp, None, None, None))
+
+
+def _attend(fn, q, k, v, lengths):
+    """``fn(q, k, v, lengths)``; on DTensors, run on each rank's local
+    shards. Attention is independent per batch row and per head, so it
+    keeps the mesh dims over which q, k and v are all sharded on the batch
+    (dim 0) or all on the heads (dim 1), replicates them over the others,
+    and returns the shards' outputs as a DTensor of that layout."""
+    if not _is_dtensor(q):
+        return fn(q, k, v, lengths)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = q.device_mesh
+    k, v = _as_dtensor(k, mesh), _as_dtensor(v, mesh)
+    keep = []
+    for j in range(mesh.ndim):
+        ps = {q.placements[j], k.placements[j], v.placements[j]}
+        keep.append(ps.pop() if len(ps) == 1 and ps <= {Shard(0), Shard(1)}
+                    else Replicate())
+    lpl = [p if p == Shard(0) else Replicate() for p in keep]
+    o = fn(*(t.redistribute(mesh, keep).to_local() for t in (q, k, v)),
+           _as_dtensor(lengths, mesh).redistribute(mesh, lpl).to_local())
+    return DTensor.from_local(o, mesh, keep, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -451,7 +624,6 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, *,
     Token ids must lie in [0, vocab): the embedding gather raises on
     others, where the reference's ``jnp.take`` does not (greedy ids are
     always in range)."""
-    _check_ported(cfg)
     B, S = tokens.shape
     d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
     dev = tokens.device
@@ -495,23 +667,29 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, *,
         else:
             katt, vatt = kk, vv
 
-        if cfg.attn_impl == "dense":
-            o = _dense_attention(q, katt, vatt, total_lengths, True,
-                                 cfg.attn_window)
+        if cache is not None and cfg.kv_seq_shard:
+            o = _dist_decode_attention(q, katt, vatt, total_lengths, cfg)
+        elif cfg.attn_impl == "dense":
+            o = _attend(lambda *a: _dense_attention(*a, True, cfg.attn_window),
+                        q, katt, vatt, total_lengths)
         elif cfg.attn_impl == "flash":
-            o = flash_attention(q, katt, vatt, total_lengths, causal=True)
+            o = _attend(lambda *a: flash_attention(*a, causal=True),
+                        q, katt, vatt, total_lengths)
         else:
-            o = _chunked_attention(q, katt, vatt, total_lengths, True,
-                                   cfg.q_chunk, cfg.kv_chunk, cfg.attn_window)
+            o = _attend(lambda *a: _chunked_attention(
+                *a, True, cfg.q_chunk, cfg.kv_chunk, cfg.attn_window),
+                q, katt, vatt, total_lengths)
         o = o.transpose(1, 2).reshape(B, S, h * dh)
         x = x + o @ lp["wo"].to(dt)
 
         xm = _norm(x, lp["ln2"], lp.get("ln2_b"))
         if cfg.is_moe:
             G = max(1, min(cfg.moe_groups, B))
-            y, aux = _moe_block(xm.reshape(G, B * S // G, d), lp["router"],
-                                lp["w_in"], lp.get("w_gate"), lp["w_out"],
-                                cfg)
+            block = (_moe_block_shard_map
+                     if cfg.moe_impl == "shard_map" and cfg.moe_ep_axis
+                     else _moe_block)
+            y, aux = block(xm.reshape(G, B * S // G, d), lp["router"],
+                           lp["w_in"], lp.get("w_gate"), lp["w_out"], cfg)
             auxes.append(aux)
             x = x + y.reshape(B, S, d)
         else:

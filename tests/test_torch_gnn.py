@@ -482,10 +482,28 @@ def test_equiformer_v2_matches_reference():
 
 
 def test_equiformer_v2_channel_sharding_waits_for_the_mesh():
+    """Channel sharding, which waited for the mesh layer, is a layout pin:
+    on plain tensors the forward with ``channel_shard_axis`` set equals the
+    one without (and the reference's forward without a mesh), and on a 1x1
+    gloo mesh a DTensor comes out with its channels over 'model' and its
+    values unchanged."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.sharding import P, placements
+    from repro_torch.launch.mesh import make_local_mesh
+    from torch_spawn import world_of_one
+
     cfg = eqv2.EquiformerV2Config(n_layers=1, channels=8, l_max=2,
                                   n_heads=4, n_species=4,
                                   channel_shard_axis="model")
     p = eqv2.init_params(_gen(), cfg)
     g, _ = graphs.random_molecule_batch(1, 4, 6, n_species=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        eqv2.forward(p, g, cfg)
+    plain = dataclasses.replace(cfg, channel_shard_axis="")
+    assert torch.equal(eqv2.forward(p, g, cfg), eqv2.forward(p, g, plain))
+    h = torch.randn(4, 9, 8, generator=_gen())
+    with world_of_one():
+        mesh = make_local_mesh(1, 1, device="cpu")
+        hd = distribute_tensor(h, mesh, placements(P(), mesh))
+        pinned = eqv2._cshard(cfg, hd)
+        assert tuple(str(x) for x in pinned.placements) == ("R", "S(2)")
+        assert torch.equal(pinned.full_tensor(), h)

@@ -712,3 +712,73 @@ def test_sampled_batch_with_unlabelled_nodes_on_card(cuda, name):
     assert abs(float(lc) - float(lh)) <= 1e-5 * abs(float(lh))
     for gap, scale in _grad_gaps(gc, gh):
         assert gap <= 1e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# The mesh layer on a world of one (NCCL, a 1x1 mesh on the card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.HashStore(),
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield make_local_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_gcda_mesh_forms_on_card_match_plain(nccl_mesh, cuda):
+    """multiply, similarity and regression_distributed on the card's 1x1
+    mesh: their kernels launch, and the results equal the plain versions
+    (matmul 2e-4; cosine and logreg rtol 3e-4 / atol 3e-5)."""
+    from repro_torch.core import analytics
+    rng = np.random.default_rng(11)
+    x = torch.as_tensor(rng.standard_normal((300, 70)), dtype=torch.float32,
+                        device=cuda)
+    y = torch.as_tensor(rng.standard_normal((70, 90)), dtype=torch.float32,
+                        device=cuda)
+    lab = (x[:, 0] > 0).float()
+    before = launch_counts()
+    z = analytics.multiply(x, y, mesh=nccl_mesh).to_local()
+    s = analytics.similarity(x, x[:50], mesh=nccl_mesh).to_local()
+    w, loss = analytics.regression_distributed(x, lab, nccl_mesh, iters=20)
+    after = launch_counts()
+    for name in ("matmul", "cosine_sim", "logreg_grad"):
+        assert after[name] > before[name], name
+    torch.testing.assert_close(z, matmul_ref(x, y), rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, cosine_sim_ref(x, x[:50]), rtol=3e-4,
+                               atol=3e-5)
+    w_p, loss_p = analytics.regression(x, lab, iters=20, use_kernel=False)
+    torch.testing.assert_close(w, w_p, rtol=3e-4, atol=3e-5)
+    torch.testing.assert_close(loss, loss_p, rtol=3e-4, atol=3e-5)
+
+
+def test_non_contiguous_blocks_reach_each_kernel(nccl_mesh, cuda):
+    """A column block of Y, a transposed Y and strided row views go through
+    the mesh forms' block step (one copy where a wrapper needs contiguous
+    rows) and give the plain versions' values."""
+    from repro_torch.core import analytics
+    rng = np.random.default_rng(12)
+    base = torch.as_tensor(rng.standard_normal((256, 160)),
+                           dtype=torch.float32, device=cuda)
+    x = base[::2, :64]                   # strided rows, a column slice
+    yt = base[:64, 64:].T.T              # a view whose rows are not packed
+    assert not x.is_contiguous() and not yt.is_contiguous()
+    z = analytics.multiply(x, yt, mesh=nccl_mesh).to_local()
+    torch.testing.assert_close(z, matmul_ref(x.contiguous(), yt.contiguous()),
+                               rtol=2e-4, atol=2e-4)
+    s = analytics.similarity(x, base[1::2, 10:74], mesh=nccl_mesh).to_local()
+    torch.testing.assert_close(
+        s, cosine_sim_ref(x.contiguous(), base[1::2, 10:74].contiguous()),
+        rtol=3e-4, atol=3e-5)
+    lab = (x[:, 1] > 0).float()
+    w, loss = analytics.regression_distributed(x, lab, nccl_mesh, iters=5)
+    w_p, loss_p = analytics.regression(x.contiguous(), lab, iters=5,
+                                       use_kernel=False)
+    torch.testing.assert_close(w, w_p, rtol=3e-4, atol=3e-5)
+    torch.testing.assert_close(loss, loss_p, rtol=3e-4, atol=3e-5)

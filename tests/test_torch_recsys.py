@@ -138,13 +138,42 @@ def test_out_of_range_id_raises(both):
 
 
 def test_mesh_forms_wait_for_the_mesh(both):
-    rcfg, cfg, _, pp = both
-    with pytest.raises(NotImplementedError, match="item 11"):
-        recsys.retrieval_step_distributed(pp, None, None, None, cfg, None)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        recsys.build_cell("wide_deep", "serve_p99", {}, None, None)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        elastic.reshard_state({"w": torch.ones(2)}, {"w": object()})
+    """The mesh forms that waited for the mesh layer now run: on a 1x1
+    gloo mesh of this process, the hierarchical retrieval gives the
+    reference's single-device top-k, ``reshard_state`` places a leaf as a
+    DTensor and gathers it back, and ``build_cell`` builds the Wide & Deep
+    serving cell (tests/test_torch_mesh.py and test_torch_dryrun.py hold
+    them on 8 ranks and on the production mesh)."""
+    from repro_torch.distributed.sharding import P, placements
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.specs import Cell
+    from torch_spawn import world_of_one
+
+    rcfg, cfg, rp, pp = both
+    rb, pb = _batches(rcfg, cfg, 3, seed=11)
+    cands = np.random.default_rng(12).standard_normal(
+        (64, rcfg.tower_dim)).astype(np.float32)
+    rv, ri = rrecsys.retrieval_step(rp, rb["dense"], rb["sparse"],
+                                    jnp.asarray(cands), rcfg, top_k=8)
+    with world_of_one():
+        mesh = make_local_mesh(1, 1, device="cpu")
+        v, i = recsys.retrieval_step_distributed(
+            pp, pb["dense"], pb["sparse"],
+            torch.from_numpy(cands).to(torch.bfloat16), cfg, mesh, top_k=8)
+        for b in range(3):
+            overlap = len(set(np.asarray(ri[b]).tolist())
+                          & set(i[b].tolist())) / 8
+            assert overlap >= 0.85, overlap
+        state = {"w": torch.arange(6.0).reshape(2, 3)}
+        out = elastic.reshard_state(
+            state, {"w": (mesh, placements(P("data", "model"), mesh))})
+        assert torch.equal(out["w"].to_local(), state["w"])
+        np.testing.assert_array_equal(elastic.host_gather(out)["w"],
+                                      state["w"].numpy())
+        cell = recsys.build_cell("wide_deep", "serve_p99",
+                                 configs.get("wide_deep").SHAPES["serve_p99"],
+                                 mesh, Cell)
+        assert cell.kind == "recsys_serve" and cell.meta["batch"] == 512
 
 
 def test_elastic_matches_reference():

@@ -242,22 +242,44 @@ def test_gredo_config_and_cells_match_reference():
             include_skipped=skipped) if c[0] in shared]
 
 
-def test_unported_parts_raise():
-    """What needs a mesh or a process group raises, naming ROADMAP item
-    11: the sharded decode attention, the shard_map MoE block and the
-    compressed all-reduce."""
-    p = init_params(torch.Generator().manual_seed(0), CFG)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        forward(p, _tokens(0, (1, 4)),
-                dataclasses.replace(CFG, kv_seq_shard="model"))
+def test_unported_parts_raise(params):
+    """The mesh forms that raised before the mesh layer was ported now run:
+    on a 1x1 gloo mesh of this process, the sequence-sharded decode
+    attention and the shard_map MoE give the plain forward's values, and
+    the compressed all-reduce gives the quantized gradient and its
+    residual (tests/test_torch_mesh.py holds them on 8 ranks)."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from torch_spawn import world_of_one
+
     moe = TransformerConfig(n_layers=1, d_model=32, n_heads=2, n_kv_heads=2,
                             d_ff=32, vocab=64, n_experts=4,
-                            moe_impl="shard_map", moe_ep_axis="model")
-    with pytest.raises(NotImplementedError, match="shard_map MoE.*item 11"):
-        init_params(torch.Generator().manual_seed(0), moe)
-    g = {"w": torch.ones(3)}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        optimizer.compressed_psum(g, "data", {"w": torch.zeros(3)})
+                            dtype=torch.float32)
+    mp = init_params(torch.Generator().manual_seed(0), moe)
+    toks = _tokens(0, (2, 6), vocab=64)
+    with world_of_one():
+        mesh = make_local_mesh(1, 1, device="cpu")
+        seq = dataclasses.replace(CFG, mesh=mesh, mesh_dp=("data",),
+                                  kv_seq_shard="model")
+        outs = []
+        for cfg in (CFG, seq):
+            cache = init_cache(cfg, 2, 12)
+            logits, _ = forward(params, _tokens(0, (2, 4)), cfg, cache=cache,
+                                cache_lengths=torch.zeros(2, dtype=torch.int32))
+            outs.append(logits)
+        np.testing.assert_allclose(outs[1].numpy(), outs[0].numpy(),
+                                   rtol=3e-4, atol=3e-4)
+        ep = dataclasses.replace(moe, mesh=mesh, mesh_dp=("data",),
+                                 moe_ep_axis="model", moe_impl="shard_map")
+        (l0, a0), (l1, a1) = forward(mp, toks, moe), forward(mp, toks, ep)
+        np.testing.assert_allclose(l1.numpy(), l0.numpy(), rtol=5e-4,
+                                   atol=5e-4)
+        np.testing.assert_allclose(float(a1), float(a0), rtol=1e-6)
+        g, e = {"w": torch.linspace(-2, 3, 7)}, {"w": torch.full((7,), 0.01)}
+        s, r = optimizer.compressed_psum(g, "data", e, mesh)
+        approx = optimizer.decompress_int8(*optimizer.compress_int8(
+            g["w"] + e["w"]))
+        assert torch.equal(s["w"], approx)
+        assert torch.equal(r["w"], g["w"] + e["w"] - approx)
 
 
 # ---------------------------------------------------------------------------

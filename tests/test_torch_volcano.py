@@ -77,8 +77,24 @@ def test_regression_matches_reference_and_batch(inputs, iters):
 
 
 def test_mesh_forms_still_raise(inputs):
-    x = torch.from_numpy(inputs[0])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        analytics.multiply(x, x.T, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        analytics.regression_distributed(x, x[:, 0], object())
+    """The GCDA mesh forms, which raised until the mesh layer was ported,
+    run on a 1x1 gloo mesh of this process and give the local operators'
+    values (tests/test_torch_mesh.py holds them on 8 ranks)."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from torch_spawn import world_of_one
+
+    x, y, z, labels = (torch.from_numpy(a) for a in inputs)
+    with world_of_one():
+        mesh = make_local_mesh(1, 1, device="cpu")
+        np.testing.assert_allclose(
+            analytics.multiply(x, y, mesh=mesh).full_tensor().numpy(),
+            analytics.multiply(x, y).numpy(), rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(
+            analytics.similarity(x, z, mesh=mesh).full_tensor().numpy(),
+            analytics.similarity(x, z).numpy(), rtol=3e-4, atol=3e-5)
+        w_d, loss_d = analytics.regression_distributed(x, labels, mesh,
+                                                       iters=20)
+    w_l, loss_l = analytics.regression(x, labels, iters=20)
+    np.testing.assert_allclose(w_d.numpy(), w_l.numpy(), rtol=3e-4,
+                               atol=3e-5)
+    np.testing.assert_allclose(float(loss_d), float(loss_l), rtol=3e-4)
