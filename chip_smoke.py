@@ -16,8 +16,12 @@ Phases (each raises on failure; the script then exits non-zero):
      ragged lengths), its split-KV decode (a 4096-position cache, bf16 and
      fp32), 77-query prefill, dh 80, 8 and 16 in bf16 and the strided
      whole-cache views in both dtypes, the embedding bag at 4096 bags
-     x 16 over a 100k x 64 table, logreg at 60000 x 4 (the shard
-     regression's width) and a hop whose candidates overflow its capacity;
+     x 16 over a 100k x 64 table and along each path of its launch plan
+     (D = 3, 32, 33, 128, 200; bf16 and fp16 tables with fp32 and
+     table-typed weights; 8 bags x 4096, split over warps; 262,144 bags
+     x 1; a table 4 bytes off 16-byte alignment), logreg at 60000 x 4 (the
+     shard regression's width) and a hop whose candidates overflow its
+     capacity;
   3. the GCDIA main path on ``m2bench.generate(sf=10, seed=0)``: a warm-up
      engine, then a fresh ``GredoEngine`` runs G1-G5 and q_opt_skew,
      ``analyze`` of A2, A3 and a_shard_reg, and A1 through
@@ -137,7 +141,13 @@ Phases (each raises on failure; the script then exits non-zero):
      and the three GCDA kernels at phase 9's per-rank blocks (launches,
      max error, times: CUDA events over back-to-back calls, the host's
      issue time, and the device time and the number of device operations
-     per call from the profiler; bound);
+     per call from the profiler; bound), and the embedding bag (on no
+     path) at the kernels_bench shape and at MLPerf DLRM-DCNv2's
+     multi-hot bag (65,536 x 100 over a 40M x 128 fp32 table made on the
+     card), each also timed in a CUDA graph, warm (one copy of the inputs)
+     and cold (copies enough that each launch misses the L2):
+     ``graph_warm_ms``, ``graph_cold_ms``; then few long bags timed in
+     CUDA graphs with the plan's j split and without it;
   11. the result line ``{"ok": true, "device": {...}}``.
 
 Nothing of JAX or of the JAX package is imported. Without a CUDA device,
@@ -158,6 +168,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_S = 3.35e12
+L2_BYTES = 50 * 2**20
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 # M2Bench scale of the main path: the largest of the scales checked (1, 10,
@@ -213,6 +224,17 @@ GCDIA_KERNELS = ("matmul", "cosine_sim", "logreg_grad", "batched_hop")
 # a_shard_reg regresses on four feature columns (m2bench.a_shard_reg)
 SHARD_FEATURES = 4
 DEVICE = "cuda"
+# The DLRM-DCNv2 multi-hot bag (MLPerf Training, Criteo 1TB): rows of its
+# largest tables, embedding dim, global batch, largest multi-hot size.
+DLRM_BAG = (40_000_000, 128, 65_536, 100)
+DLRM_SEED = 7
+# Few long bags, where the bag's plan splits j over warps: (bags, slots, V,
+# D, table dtype, weighted). The first is 8 users' 4096-long histories over
+# the kernels_bench table; the last has just few enough bags to be split.
+LONG_BAGS = ((8, 4096, 100_000, 64, "float32", True),
+             (8, 4096, 100_000, 128, "bfloat16", False),
+             (512, 1024, 1_000_000, 64, "float32", True),
+             (2048, 256, 1_000_000, 64, "float32", True))
 
 
 def say(*parts) -> None:
@@ -501,25 +523,95 @@ def sweep_flash(rng, t) -> int:
     return len(cases) + 2
 
 
-def embedding_bag_inputs(rng, t, nbags, bag, V, D, weighted=True):
+def embedding_bag_inputs(rng, t, nbags, bag, V, D, weighted=True,
+                         dtype=None, wdtype=None, offset=0, exact=None):
+    """Table, indices (bag 0 padded past its first slot) and weights from
+    ``rng``; the table cast to ``dtype`` and the weights to ``wdtype``
+    (float32 by default); ``offset`` > 0 makes the table a contiguous view
+    that many elements into a flat tensor (off 16-byte alignment). Bags of
+    more than 1000 slots take small integers as table values and quarters
+    as weights, so that every order of summation is exact in fp32 (a sum
+    of 4096 normal values that cancels differs between two orders by more
+    than the tolerance of its small result); ``exact`` overrides that."""
     import torch
+    exact = bag > 1000 if exact is None else exact
     idx = rng.integers(0, V, (nbags, bag)).astype("int32")
     idx[0, 1:] = -1
-    table = t(rng.standard_normal((V, D)))
-    w = t(rng.random((nbags, bag))) if weighted else None
+    flat = t(rng.integers(-8, 8, offset + V * D) if exact
+             else rng.standard_normal(offset + V * D))
+    if dtype is not None:
+        flat = flat.to(dtype)
+    table = flat[offset:offset + V * D].view(V, D)
+    w = None
+    if weighted:
+        w = t(rng.integers(0, 5, (nbags, bag)) / 4 if exact
+              else rng.random((nbags, bag)))
+    if w is not None and wdtype is not None:
+        w = w.to(wdtype)
     return table, t(idx, torch.int32), w
 
 
 def sweep_embedding_bag(rng, t) -> int:
+    """The reference sweep shapes, then each path of the kernel's plan:
+    D = 32 and 128, bf16 and fp16 tables with fp32 and table-typed
+    weights, few long bags (j split over warps), many one-slot bags, odd
+    widths and a table 4 bytes off 16-byte alignment (scalar loads)."""
+    import torch
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
-    cases = [(8, 4, 64, 16, True), (16, 8, 500, 32, True),
-             (16, 8, 500, 32, False), (4096, 16, 100_000, 64, True)]
-    for nbags, bag, V, D, weighted in cases:
-        args = embedding_bag_inputs(rng, t, nbags, bag, V, D, weighted)
-        assert_close(f"embedding_bag {nbags}x{bag} over {V}x{D}",
+    bf16, f16 = torch.bfloat16, torch.float16
+    cases = [(8, 4, 64, 16, True, {}), (16, 8, 500, 32, True, {}),
+             (16, 8, 500, 32, False, {}), (4096, 16, 100_000, 64, True, {}),
+             (1000, 20, 5000, 32, True, {}), (1000, 20, 5000, 128, False, {}),
+             (4096, 16, 100_000, 64, True, dict(dtype=bf16)),
+             (4096, 16, 100_000, 64, True, dict(dtype=bf16, wdtype=bf16)),
+             (1000, 20, 5000, 128, False, dict(dtype=f16)),
+             (1000, 20, 5000, 200, True, dict(dtype=f16, wdtype=f16)),
+             (8, 4096, 100_000, 64, True, {}),
+             (8, 4096, 100_000, 128, False, dict(dtype=bf16)),
+             (262_144, 1, 100_000, 64, True, {}),
+             (1000, 20, 5000, 64, True, dict(offset=1)),
+             (1000, 20, 5000, 3, True, {}), (1000, 20, 5000, 33, False, {})]
+    for nbags, bag, V, D, weighted, kw in cases:
+        args = embedding_bag_inputs(rng, t, nbags, bag, V, D, weighted, **kw)
+        assert_close(f"embedding_bag {nbags}x{bag} over {V}x{D} "
+                     f"{args[0].dtype} weights "
+                     f"{None if args[2] is None else args[2].dtype} "
+                     f"offset {kw.get('offset', 0)}",
                      wrapper("embedding_bag")(*args),
                      embedding_bag_ref(*args), *TOL["embedding_bag"])
-    return len(cases)
+    for D, kw in ((64, dict(weighted=True)),
+                  (128, dict(weighted=False, dtype=bf16))):
+        args = embedding_bag_inputs(rng, t, 8, 4096, 100_000, D, exact=False,
+                                    **kw)
+        assert_within_sum_bound(f"embedding_bag 8x4096 over 100000x{D} "
+                                f"{args[0].dtype}, normal values",
+                                wrapper("embedding_bag")(*args), *args)
+    return len(cases) + 2
+
+
+def assert_within_sum_bound(name, got, table, idx, w) -> float:
+    """The bag sums ``got`` against a float64 sum, within Higham and Mary's
+    probabilistic bound for fp32 summation of n = bag exact terms (each
+    w * row is exact inside an fma) in any order: gamma * sum_j |w * row|
+    per element, gamma = exp(lam sqrt(n) u + n u^2 / (1 - u)) - 1 with
+    u = 2**-24 and lam = 8, which holds with probability at least
+    1 - 2n exp(-lam^2 (1 - u)^2 / 2) (1 - 1e-10 at n = 4096) when the
+    rounding errors are independent. A dropped slot, a wrong row or sums
+    kept in 16 bits exceed it; the deterministic bound (n - 1) u sum |w *
+    row| would not see a dropped slot at n = 4096."""
+    import torch
+    valid = idx >= 0
+    w64 = valid.double() if w is None else w.double() * valid
+    terms = table[idx.clamp_min(0).long()].double() * w64[..., None]
+    err = (got.double() - terms.sum(1)).abs()
+    n, u, lam = idx.shape[1], 2.0 ** -24, 8.0
+    gamma = math.expm1(lam * math.sqrt(n) * u + n * u * u / (1 - u))
+    bound = gamma * terms.abs().sum(1)
+    if not bool((err <= bound).all()):
+        worst = float((err / bound.clamp_min(1e-300)).max())
+        raise AssertionError(f"{name}: error {float(err.max()):.3e} exceeds "
+                             f"the summation bound ({worst:.2f} of it)")
+    return float(err.max())
 
 
 # ---------------------------------------------------------------------------
@@ -2649,37 +2741,198 @@ def flash_rows(cap, arch=None) -> list:
     return rows
 
 
-def embedding_bag_row() -> dict:
-    """The embedding bag is on no path; its row is at the kernels_bench
-    shape, 4096 bags x 16 over a 100k x 64 fp32 table."""
-    import numpy as np
+def graph_ms(make_call, copies: int, k: int, replays: int = 10) -> float:
+    """Device time of one call with the host out of the way: ``k`` calls
+    captured in one CUDA graph, call i made by ``make_call(i % copies)``,
+    the graph replayed ``replays`` times after one warm replay, timed by
+    CUDA events and divided by ``k * replays``. With one copy the inputs
+    stay in L2 from call to call (warm); over ``cold_copies`` copies, each
+    call finds its inputs in device memory (cold)."""
+    import torch
+    calls = [make_call(c) for c in range(copies)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for call in calls:
+            call()                      # outside the capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for i in range(k):
+                calls[i % copies]()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (k * replays)
+    del graph
+    return ms
+
+
+def cold_copies(touched_bytes: float) -> int:
+    """Copies of a call's inputs such that, rotating over them, the calls
+    on the other copies between two uses of one copy touch at least twice
+    the L2; one copy where a call alone touches that much (it then evicts
+    its own rows before the next call reads them)."""
+    if touched_bytes >= 2 * L2_BYTES:
+        return 1
+    return math.ceil(2 * L2_BYTES / touched_bytes) + 1
+
+
+def bag_bytes(table, idx, w) -> tuple[int, int]:
+    """The bytes a bag call must move (each distinct row of a valid slot,
+    the indices, the weights and the fp32 output once) and the number of
+    distinct rows."""
+    import torch
+    n_rows = int(torch.unique(idx[idx >= 0]).numel())
+    D = table.shape[1]
+    nbytes = (n_rows * D * table.element_size() + idx.numel() * 4
+              + (0 if w is None else w.numel() * w.element_size())
+              + idx.shape[0] * D * 4)
+    return nbytes, n_rows
+
+
+def bag_row(row_name, table, idx, w, k, shape) -> dict:
+    """One embedding-bag row: the kernel against its plain version, the
+    ``report_row`` columns, the byte bound (each distinct row of a valid
+    slot, the indices, the weights and the output once; a warm reading may
+    beat it, because it reads from L2) and the CUDA-graph times, warm and
+    cold (``graph_ms`` over ``cold_copies`` copies of the table, indices
+    and weights)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    kernel = wrapper("embedding_bag")
+    err = assert_close(f"{row_name} ({shape})", kernel(table, idx, w),
+                       embedding_bag_ref(table, idx, w),
+                       *TOL["embedding_bag"])
+    valid = idx >= 0
+    nbytes, n_rows = bag_bytes(table, idx, w)
+    lib_idx = idx.clamp_min(0)
+    lib_w = None if w is None else w * valid
+    library_ms = time_ms(lambda: F.embedding_bag(
+        lib_idx, table, mode="sum", per_sample_weights=lib_w))[0]
+    del lib_idx, lib_w
+    shape = (f"{shape} ({int(valid.sum())} valid slots, {n_rows} distinct "
+             "rows)")
+    row = report_row(row_name, "embedding_bag", 0, err,
+                     lambda: kernel(table, idx, w),
+                     lambda: embedding_bag_ref(table, idx, w),
+                     (nbytes / PEAK_BYTES_S * 1e3, "bytes"), library_ms,
+                     shape)
+    copies = cold_copies(nbytes)
+    inputs = [(table, idx, w)] + [
+        (table.clone(), idx.clone(), None if w is None else w.clone())
+        for _ in range(copies - 1)]
+    row["graph_warm_ms"] = graph_ms(lambda c: lambda: kernel(table, idx, w),
+                                    1, k)
+    row["graph_cold_ms"] = graph_ms(lambda c: lambda: kernel(*inputs[c]),
+                                    copies, k)
+    row["cold_copies"] = copies
+    say(f"{row_name}: CUDA graph of {k} launches, warm "
+        f"{row['graph_warm_ms']:.4f} ms, cold {row['graph_cold_ms']:.4f} ms "
+        f"({copies} copies of {nbytes / 1e6:.1f} MB touched), bound "
+        f"{row['bound_ms']:.4f} ms: cold at "
+        f"{row['bound_ms'] / row['graph_cold_ms']:.1%} of the byte bound "
+        f"({nbytes / row['graph_cold_ms'] / 1e9:.4f} TB/s), warm reads L2")
+    return row
+
+
+def embedding_bag_rows() -> list:
+    """The embedding bag is on no path (the recommender gathers and
+    segment-sums, as the reference does). Its rows: the kernels_bench
+    shape, 4096 bags x 16 over a 100k x 64 fp32 table, weighted, seed 7;
+    and MLPerf Training's DLRM-DCNv2 multi-hot bag (Criteo 1TB: embedding
+    dim 128, its 40M-row tables, its largest multi-hot size 100, global
+    batch 65,536), one 40M x 128 fp32 table (20.48 GB) made on the card,
+    65,536 bags of 100 ids uniform from the seed (Criteo's skew is not
+    modelled), unweighted."""
+    import numpy as np
+    import torch
     rng = np.random.default_rng(7)
     dev = torch.device(DEVICE)
     table, idx, w = embedding_bag_inputs(
         rng, lambda a, dt=torch.float32: torch.as_tensor(
             np.asarray(a), device=dev).to(dt), 4096, 16, 100_000, 64)
-    kernel = wrapper("embedding_bag")
-    err = assert_close("embedding_bag (kernels_bench shape)",
-                       kernel(table, idx, w), embedding_bag_ref(table, idx, w),
-                       *TOL["embedding_bag"])
-    valid = idx >= 0
-    n_valid = int(valid.sum())
-    # each distinct table row read once, index and weight per slot, output
-    n_rows = int(torch.unique(idx[valid]).numel())
-    nbytes = n_rows * 64 * 4 + idx.numel() * 8 + 4096 * 64 * 4
-    lib_idx, lib_w = idx.clamp_min(0), w * valid
-    library_ms = time_ms(lambda: F.embedding_bag(
-        lib_idx, table, mode="sum", per_sample_weights=lib_w))[0]
-    return report_row(
-        "embedding_bag", "embedding_bag", 0, err,
-        lambda: kernel(table, idx, w),
-        lambda: embedding_bag_ref(table, idx, w),
-        (nbytes / PEAK_BYTES_S * 1e3, "bytes"), library_ms,
-        f"4096 bags x 16 over 100000x64 fp32 ({n_valid} valid slots, "
-        f"{n_rows} distinct rows)")
+    rows = [bag_row("embedding_bag", table, idx, w, 64,
+                    "4096 bags x 16 over 100000x64 fp32, weighted")]
+    del table, idx, w
+    torch.cuda.empty_cache()
+    V, D, n_bags, bag = DLRM_BAG
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(DLRM_SEED)
+    say(f"embedding_bag/dlrm_dcnv2: {V}x{D} fp32 table and {n_bags}x{bag} "
+        f"ids from torch.Generator(cuda) seed {DLRM_SEED}")
+    table = torch.randn((V, D), generator=gen, device=dev)
+    idx = torch.randint(0, V, (n_bags, bag), generator=gen, device=dev,
+                        dtype=torch.int32)
+    rows.append(bag_row(
+        "embedding_bag/dlrm_dcnv2", table, idx, None, 8,
+        f"{n_bags} bags x {bag} over {V}x{D} fp32, unweighted, uniform "
+        "ids (Criteo's skew not modelled)"))
+    del table, idx
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bag_split_lines() -> None:
+    """The j split's gain: each of LONG_BAGS timed in a CUDA graph (64
+    launches, warm and cold) at the plan's launch and unsplit (the plan of
+    one-slot bags, which never splits j), each checked against the plain
+    version first."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import wrapper_module
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    eb = wrapper_module("embedding_bag")
+    kernel = eb.embedding_bag
+    planned = eb._plan
+
+    def unsplit(n_bags, bag, *rest):
+        return planned(n_bags, 1, *rest)
+
+    rng = np.random.default_rng(7)
+    dev = torch.device(DEVICE)
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(np.asarray(a), device=dev).to(dt)
+
+    for nbags, bag, V, D, dtype, weighted in LONG_BAGS:
+        table, idx, w = embedding_bag_inputs(rng, t, nbags, bag, V, D,
+                                             weighted,
+                                             dtype=getattr(torch, dtype))
+        nbytes, _ = bag_bytes(table, idx, w)
+        copies = cold_copies(nbytes)
+        inputs = [(table, idx, w)] + [
+            (table.clone(), idx.clone(), None if w is None else w.clone())
+            for _ in range(copies - 1)]
+        want = embedding_bag_ref(table, idx, w)
+        shape = f"{nbags} x {bag} over {V}x{D} {dtype}"
+        text = []
+        for label, how in (("split", planned), ("unsplit", unsplit)):
+            launch = how(nbags, bag, D, table.element_size(), True,
+                         table.device.index)
+            with mock.patch.object(eb, "_plan", how):
+                assert_close(f"embedding_bag {shape} {label}",
+                             kernel(table, idx, w), want,
+                             *TOL["embedding_bag"])
+                warm = graph_ms(lambda c: lambda: kernel(table, idx, w), 1,
+                                64)
+                cold = graph_ms(lambda c: lambda: kernel(*inputs[c]), copies,
+                                64)
+            text.append(f"{label} (vec, lanes, splits, blocks) {launch}: "
+                        f"warm {warm:.4f} ms, cold {cold:.4f} ms")
+        say(f"embedding_bag long bags {shape}: " + "; ".join(text)
+            + f"; bound {nbytes / PEAK_BYTES_S * 1e3:.4f} ms ({copies} "
+            f"copies of {nbytes / 1e6:.1f} MB)")
+        del table, idx, w, inputs, want
 
 
 def main() -> int:
@@ -2714,7 +2967,8 @@ def main() -> int:
                 proc.kill()
                 proc.wait()
             log.close()
-    rows += [embedding_bag_row()]
+    rows += embedding_bag_rows()
+    bag_split_lines()
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

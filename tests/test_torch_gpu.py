@@ -13,6 +13,7 @@ alone). Tolerances: fp32 matmul 2e-4, bf16 2e-2; cosine, logreg, flash
 attention and embedding bag rtol 3e-4 / atol 3e-5 (different summation
 order), bf16 flash attention 2e-2; traversal exact."""
 import dataclasses
+import math
 import zlib
 
 import numpy as np
@@ -365,22 +366,137 @@ def test_flash_kernel_reads_strided_views_and_whole_cache(cuda, dtype):
     assert not got[1, :, :2].any()
 
 
-@pytest.mark.parametrize("nbags,bag,V,D,weighted", [
-    (8, 4, 64, 16, True), (16, 8, 500, 32, True), (16, 8, 500, 32, False),
-    (300, 16, 1000, 200, True)])
-def test_embedding_bag_kernel_matches_plain(cuda, nbags, bag, V, D,
-                                            weighted):
-    table = torch.as_tensor(RNG.standard_normal((V, D)), device=cuda).float()
+def _bag_inputs(cuda, nbags, bag, V, D, weighted, dtype=torch.float32,
+               wdtype=torch.float32, offset=0, exact=None):
+    """Table (a contiguous view ``offset`` elements into a flat tensor),
+    indices with bag 0 padded past its first slot, weights or None. Bags of
+    more than 1000 slots take small integers as table values and quarters
+    as weights, so that every order of summation is exact in fp32: the
+    plain version and the kernel (its j split) sum in different orders, and
+    a sum of 4096 normal values that cancels differs between two orders by
+    more than rtol 3e-4 / atol 3e-5 of its small result."""
+    exact = bag > 1000 if exact is None else exact
+    flat = (RNG.integers(-8, 8, offset + V * D) if exact
+            else RNG.standard_normal(offset + V * D))
+    flat = torch.as_tensor(flat, device=cuda).to(dtype)
+    table = flat[offset:offset + V * D].view(V, D)
     idx = RNG.integers(0, V, (nbags, bag)).astype(np.int32)
     idx[0, 1:] = -1
     idx = torch.as_tensor(idx, device=cuda)
-    w = (torch.as_tensor(RNG.random((nbags, bag)), device=cuda).float()
-         if weighted else None)
+    w = None
+    if weighted:
+        w = (RNG.integers(0, 5, (nbags, bag)) / 4 if exact
+             else RNG.random((nbags, bag)))
+        w = torch.as_tensor(w, device=cuda).to(wdtype)
+    return table, idx, w
+
+
+BF16, F16 = torch.bfloat16, torch.float16
+
+
+@pytest.mark.parametrize("nbags,bag,V,D,weighted,kw", [
+    (8, 4, 64, 16, True, {}), (16, 8, 500, 32, True, {}),
+    (16, 8, 500, 32, False, {}), (300, 16, 1000, 200, True, {}),
+    # the scalar path: widths whose rows are not whole 16-byte chunks
+    (40, 7, 300, 1, True, {}), (40, 7, 300, 3, False, {}),
+    (40, 7, 300, 33, True, {}),
+    # 16-byte loads, one to four bags a warp, and column chunks past 128
+    (100, 9, 1000, 64, True, {}), (100, 9, 1000, 128, False, {}),
+    # a table 4 bytes off 16-byte alignment takes the scalar path
+    (100, 9, 1000, 64, True, dict(offset=1)),
+    # one slot a bag; j split over warps; many one-slot bags
+    (50, 1, 1000, 64, True, {}), (8, 4096, 10_000, 64, True, {}),
+    (8, 4096, 10_000, 128, False, {}), (262_144, 1, 1000, 64, True, {}),
+    # bf16 and fp16 tables, weighted (fp32 and table-typed) and unweighted
+    (100, 9, 1000, 64, True, dict(dtype=BF16)),
+    (100, 9, 1000, 64, True, dict(dtype=BF16, wdtype=BF16)),
+    (100, 9, 1000, 128, False, dict(dtype=BF16)),
+    (100, 9, 1000, 64, True, dict(dtype=F16)),
+    (100, 9, 1000, 64, True, dict(dtype=F16, wdtype=F16)),
+    (100, 9, 1000, 128, False, dict(dtype=F16)),
+    (100, 9, 1000, 20, True, dict(dtype=BF16, offset=3)),
+])
+def test_embedding_bag_kernel_matches_plain(cuda, nbags, bag, V, D,
+                                            weighted, kw):
+    table, idx, w = _bag_inputs(cuda, nbags, bag, V, D, weighted, **kw)
     before = launch_counts()["embedding_bag"]
     got = kernel("embedding_bag")(table, idx, w)
     assert launch_counts()["embedding_bag"] == before + 1
+    assert got.dtype == torch.float32
     torch.testing.assert_close(got, embedding_bag_ref(table, idx, w),
                                rtol=3e-4, atol=3e-5)
+
+
+@pytest.mark.parametrize("D,weighted,dtype", [(64, True, torch.float32),
+                                               (128, False, BF16)])
+def test_embedding_bag_kernel_long_normal_bags_within_summation_bound(
+        cuda, D, weighted, dtype):
+    """8 bags x 4096 of normal values (the j split) against a float64 sum,
+    within Higham and Mary's probabilistic bound for fp32 summation of
+    n = 4096 exact terms in any order, lam = 8 (it holds with probability
+    1 - 1e-10 under independent rounding errors): gamma * sum_j |w * row|
+    per element, gamma = exp(lam sqrt(n) u + n u^2 / (1 - u)) - 1. A
+    dropped slot, a wrong row or 16-bit sums exceed it."""
+    table, idx, w = _bag_inputs(cuda, 8, 4096, 10_000, D, weighted,
+                                dtype=dtype, exact=False)
+    got = kernel("embedding_bag")(table, idx, w)
+    valid = idx >= 0
+    w64 = valid.double() if w is None else w.double() * valid
+    terms = table[idx.clamp_min(0).long()].double() * w64[..., None]
+    n, u, lam = idx.shape[1], 2.0 ** -24, 8.0
+    gamma = math.expm1(lam * math.sqrt(n) * u + n * u * u / (1 - u))
+    bound = gamma * terms.abs().sum(1)
+    assert ((got.double() - terms.sum(1)).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+def test_embedding_bag_kernel_padding_over_non_finite_row(cuda, weighted):
+    """A padded slot reads row 0 with weight 0, as the reference does: a
+    NaN in row 0 makes every bag with a padded slot NaN, and a bag that is
+    all padding sums to 0 over a finite row 0."""
+    table, idx, w = _bag_inputs(cuda, 6, 5, 40, 64, weighted)
+    idx[1] = -1                                  # all padding
+    got = kernel("embedding_bag")(table, idx, w)
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    table[0, 5] = float("nan")
+    got = kernel("embedding_bag")(table, idx, w)
+    want = embedding_bag_ref(table, idx, w)
+    assert torch.isnan(want[:2, 5]).all() and torch.isnan(got[:2, 5]).all()
+    torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-5,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("nbags,bag,D", [(4096, 16, 64), (8, 4096, 64)])
+def test_embedding_bag_kernel_gives_the_same_bits(cuda, nbags, bag, D):
+    """No atomics: two calls give the same bits (the j split included), on
+    normal values whose sums round differently in another order."""
+    table, idx, w = _bag_inputs(cuda, nbags, bag, 10_000, D, True,
+                                exact=False)
+    bag_k = kernel("embedding_bag")
+    assert torch.equal(bag_k(table, idx, w), bag_k(table, idx, w))
+
+
+def test_embedding_bag_kernel_replays_in_a_cuda_graph(cuda):
+    """A bag captured in a CUDA graph, replayed on new indices, gives the
+    plain version's output every time (the launch keeps no host state)."""
+    table, idx, w = _bag_inputs(cuda, 512, 16, 5000, 64, True, dtype=BF16)
+    bag_k = kernel("embedding_bag")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bag_k(table, idx, w)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            got = bag_k(table, idx, w)
+    torch.cuda.current_stream().wait_stream(side)
+    rng = np.random.default_rng(9)
+    for _ in range(3):
+        new = rng.integers(-1, 5000, idx.shape).astype(np.int32)
+        idx.copy_(torch.as_tensor(new))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, embedding_bag_ref(table, idx, w),
+                                   rtol=3e-4, atol=3e-5)
 
 
 def test_kernels_launch_on_the_current_stream(cuda):
@@ -434,6 +550,11 @@ def test_wrappers_reject_inputs_they_do_not_take(cuda):
     idx = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         bag(x, idx.long())
+    with pytest.raises(TypeError):
+        bag(x.double(), idx)
+    with pytest.raises(TypeError):             # fp16 weights, bf16 table
+        bag(x.bfloat16(), idx, torch.ones((2, 3), device=cuda).half())
+    assert bag(x.bfloat16(), idx).dtype == torch.float32
     with pytest.raises(ValueError):
         bag(x, idx, torch.ones((2, 2), device=cuda))
     with pytest.raises(ValueError, match="CUDA"):

@@ -215,6 +215,51 @@ def test_logreg_plan_fills_the_card():
     assert plan(15910, 200, 132)[3] == 16
 
 
+def test_embedding_bag_plan_covers_the_row():
+    """16-byte loads where the row and the table's alignment allow them,
+    else one value a load (4 columns a lane); the least power of two of
+    lanes whose loads cover the row (a row wider than a warp's loads takes column chunks);
+    narrow rows share a warp; the grid fills the card at the kernels_bench
+    shape and at the DLRM-DCNv2 bag; j is split over warps only for few,
+    long bags."""
+    from repro_torch.kernels.embedding_bag.embedding_bag import (
+        BLOCKS_PER_SM, MIN_SLICE, WARPS, plan)
+    for D in (1, 3, 16, 20, 32, 33, 64, 128, 200, 1000):
+        for elt in (4, 2):
+            for aligned in (True, False):
+                vec, lanes, splits, blocks = plan(4096, 16, D, elt, aligned,
+                                                  132)
+                assert (vec > 1) == (aligned and D * elt % 16 == 0)
+                assert vec == 1 or vec * elt == 16
+                assert lanes & (lanes - 1) == 0 and lanes <= 32
+                cols = vec if vec > 1 else 4               # a lane's
+                assert lanes * cols >= D or lanes == 32    # covers D
+                assert lanes == 1 or lanes // 2 * cols < D  # and no more
+                assert 32 // lanes * lanes <= 32           # bags a warp
+                assert splits == 1 and blocks >= 1
+    assert plan(4096, 16, 32, 4, True, 132)[:2] == (4, 8)     # 4 bags a warp
+    assert plan(4096, 16, 64, 4, True, 132)[:2] == (4, 16)    # 2 bags a warp
+    assert plan(4096, 16, 128, 4, True, 132)[:2] == (4, 32)
+    assert plan(4096, 16, 64, 2, True, 132)[:2] == (8, 8)     # bf16
+    assert plan(4096, 16, 64, 4, False, 132)[:2] == (1, 16)   # misaligned
+    assert plan(4096, 16, 66, 2, True, 132)[0] == 1           # 132 bytes
+    # the grid fills 132 SMs at the two timed shapes
+    assert plan(4096, 16, 64, 4, True, 132)[3] >= 132
+    assert plan(65536, 100, 128, 4, True, 132)[3] >= 132
+    # j split only for few, long bags, each slice at least MIN_SLICE
+    for n_bags, bag, D, split in [(8, 4096, 64, True), (8, 4096, 128, True),
+                                  (8, 4, 64, False), (4096, 16, 64, False),
+                                  (65536, 100, 128, False),
+                                  (262144, 1, 64, False),
+                                  (100_000, 4096, 64, False)]:
+        _, lanes, splits, blocks = plan(n_bags, bag, D, 4, True, 132)
+        assert (splits > 1) == split, (n_bags, bag)
+        assert splits <= WARPS and bag // splits >= MIN_SLICE or splits == 1
+        groups = -(-n_bags // (32 // lanes))     # warps' worth of bags
+        assert blocks == min(-(-groups // (WARPS // splits)),
+                             BLOCKS_PER_SM * 132)
+
+
 def _chain_graph(seed=5, n=40, m=160):
     rng = np.random.default_rng(seed)
     src = np.sort(rng.integers(0, n, m))
@@ -418,17 +463,39 @@ def test_flash_split_choice_is_a_function_of_shapes():
         assert 2 * tiles * s >= TARGET_BLOCKS or s == -(-skv // 64)
 
 
-@pytest.mark.parametrize("nbags,bag,V,D", [(8, 4, 64, 16), (16, 8, 500, 32)])
-@pytest.mark.parametrize("weighted", [True, False])
-def test_embedding_bag_matches_pallas(nbags, bag, V, D, weighted):
+def _bag_cases():
+    """The fp32 cases under their first names, then bf16 and fp16 tables,
+    each weighted by fp32 and by table-typed weights, and unweighted."""
+    shapes = [(8, 4, 64, 16), (16, 8, 500, 32)]
+    cases = [pytest.param(weighted, *shape, None, None,
+                          id="-".join(map(str, (weighted, *shape))))
+             for weighted in (True, False) for shape in shapes]
+    for dtype in ("bfloat16", "float16"):
+        for weighted, wdtype in ((True, "float32"), (True, dtype),
+                                 (False, None)):
+            cases += [pytest.param(
+                weighted, *shape, dtype, wdtype,
+                id="-".join(map(str, (weighted, *shape, dtype, wdtype))))
+                for shape in shapes]
+    return cases
+
+
+@pytest.mark.parametrize("weighted,nbags,bag,V,D,dtype,wdtype", _bag_cases())
+def test_embedding_bag_matches_pallas(weighted, nbags, bag, V, D, dtype,
+                                      wdtype):
     table = RNG.standard_normal((V, D)).astype(np.float32)
     idx = RNG.integers(0, V, (nbags, bag)).astype(np.int32)
     idx[0, 1:] = -1
     w = RNG.random((nbags, bag)).astype(np.float32) if weighted else None
-    want = jax_bag(jnp.asarray(table), jnp.asarray(idx),
-                   None if w is None else jnp.asarray(w), interpret=True)
-    got = embedding_bag_ref(T(table), T(idx), None if w is None else T(w))
-    assert got.dtype == torch.float32
+    jt, tt = jnp.asarray(table), T(table)
+    jw, tw = (None, None) if w is None else (jnp.asarray(w), T(w))
+    if dtype is not None:           # cast in both packages
+        jt, tt = jt.astype(dtype), tt.to(getattr(torch, dtype))
+    if w is not None and wdtype is not None:
+        jw, tw = jw.astype(wdtype), tw.to(getattr(torch, wdtype))
+    want = jax_bag(jt, jnp.asarray(idx), jw, interpret=True)
+    got = embedding_bag_ref(tt, T(idx), tw)
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
                                atol=3e-5)
 
