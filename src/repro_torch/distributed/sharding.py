@@ -20,6 +20,8 @@ from __future__ import annotations
 
 from typing import Any
 
+import torch
+
 from ..train.optimizer import tree_map
 
 Tree = Any
@@ -248,6 +250,238 @@ def tree_shardings(specs: Tree, mesh) -> Tree:
 
 
 # ---------------------------------------------------------------------------
+# Layouts the model code asks of a DTensor: the counterparts of GSPMD's
+# ``with_sharding_constraint`` and of its partitioning of a gather from a
+# sharded dim. On a plain tensor each computes what the plain code does, so
+# a single device's results do not change.
+# ---------------------------------------------------------------------------
+
+
+def as_dtensor(t, mesh):
+    """``t`` as a DTensor on ``mesh``: itself, or a replicated one."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def block_index(t, dim: int) -> int:
+    """This rank's block of DTensor ``t`` along tensor dim ``dim``: its
+    linear index over the mesh dims that shard ``dim``, major first."""
+    from torch.distributed.tensor import Shard
+
+    idx = 0
+    for j, p in enumerate(t.placements):
+        if p == Shard(dim):
+            idx = idx * t.device_mesh.size(j) + t.device_mesh.get_local_rank(j)
+    return idx
+
+
+class _Pin(torch.autograd.Function):
+    """Redistribute to ``pl``, and the gradient to ``pl`` too."""
+
+    @staticmethod
+    def forward(ctx, t, pl):
+        ctx.pl = pl
+        return t.redistribute(t.device_mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.pl), None
+
+
+def keep_split(t, dims):
+    """``t`` with its splits of the tensor dims ``dims`` kept, every other
+    dim replicated and partial sums reduced, and its gradient pinned to the
+    same layout: the counterpart of a ``with_sharding_constraint``. Left
+    alone, DTensor picks the cheapest layout operation by operation, and on
+    a mesh with two data axes it splits the sequence over 'model' where the
+    next reshape cannot follow."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    dims = {d % t.ndim for d in dims}
+    pl = tuple(p if isinstance(p, Shard) and p.dim in dims else Replicate()
+               for p in t.placements)
+    return _Pin.apply(t, pl)
+
+
+def keep_batch(t):
+    """:func:`keep_split` of the batch (dim 0): the layout GSPMD gives the
+    activations of a data- and tensor-parallel step."""
+    return keep_split(t, (0,))
+
+
+def on_shards(fn, args, roles, out_roles):
+    """``fn(*args)`` for an ``fn`` that is independent along some of its
+    dims, named by ``roles`` (per argument, one name or ``None`` per dim)
+    and ``out_roles`` (likewise per output; a tuple of them when ``fn``
+    returns several): the counterpart of a ``shard_map`` over named dims.
+    Given DTensors, each rank runs ``fn`` on its blocks. A mesh dim is kept
+    where every DTensor argument that has a role is split along it on that
+    role (a plain argument with the role is cut to the rank's block); over
+    the other mesh dims every argument is replicated (partial sums reduced)
+    and each rank computes alike. An output split along a kept mesh dim by
+    its role is a shard of the result, one without the role is a partial
+    sum over it (so ``fn`` returns each rank's share). Each argument's
+    gradient is its block's share: split where the argument is, summed
+    over the kept mesh dims it has no role on, replicated elsewhere."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dts = [a for a in args if isinstance(a, DTensor)]
+    if not dts:
+        return fn(*args)
+    mesh = dts[0].device_mesh
+    kept = []
+    for j in range(mesh.ndim):
+        split = {r[p.dim] if isinstance(p, Shard) else False
+                 for a, r in zip(args, roles) if isinstance(a, DTensor)
+                 for p in (a.placements[j],) if not p.is_replicate()}
+        role = split.pop() if len(split) == 1 else None
+        if role and all(a.placements[j] == Shard(r.index(role))
+                        for a, r in zip(args, roles)
+                        if isinstance(a, DTensor) and role in r):
+            kept.append(role)
+        else:
+            kept.append(None)
+
+    def layout(r, missing):
+        return [Replicate() if k is None else
+                Shard(r.index(k)) if k in r else missing for k in kept]
+
+    local = []
+    for a, r in zip(args, roles):
+        if isinstance(a, DTensor) or (isinstance(a, torch.Tensor) and
+                                      any(k in r for k in kept if k)):
+            a = as_dtensor(a, mesh).redistribute(
+                mesh, layout(r, Replicate())).to_local(
+                    grad_placements=layout(r, Partial()))
+        local.append(a)
+    out = fn(*local)
+    many = isinstance(out, tuple)
+    outs = tuple(DTensor.from_local(o, mesh, layout(r, Partial()),
+                                    run_check=False)
+                 for o, r in zip(out if many else (out,),
+                                 out_roles if many else (out_roles,)))
+    return outs if many else outs[0]
+
+
+class _Extremum(torch.autograd.Function):
+    """The rows' scatter on each rank, reduced over the mesh dims that
+    split the rows; the gradient to each row equal to its result, split
+    among the ties."""
+
+    @staticmethod
+    def forward(ctx, src, index, fn, reduce):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, \
+            Shard
+
+        mesh, pl = src.device_mesh, src.placements
+        out = DTensor.from_local(
+            fn(src.to_local(), index.to_local()), mesh,
+            [Partial("max" if reduce == "amax" else "min") if p == Shard(0)
+             else p for p in pl], run_check=False)
+        out = out.redistribute(mesh, [Replicate() if p == Shard(0) else p
+                                      for p in pl])
+        ctx.save_for_backward(src, index, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, \
+            Shard
+
+        src, index, out = ctx.saved_tensors
+        mesh, pl = src.device_mesh, src.placements
+        sl, il, ol = src.to_local(), index.to_local(), out.to_local()
+        hit = (sl == ol[il]).to(sl.dtype)
+        ties = DTensor.from_local(
+            torch.zeros_like(ol).index_add(0, il, hit), mesh,
+            [Partial() if p == Shard(0) else p for p in pl],
+            run_check=False).redistribute(mesh, out.placements).to_local()
+        gl = g.redistribute(mesh, out.placements).to_local()
+        return (DTensor.from_local(gl[il] * hit / ties[il], mesh, pl,
+                                   run_check=False), None, None, None)
+
+
+def scatter_extremum(fn, src, index, reduce: str):
+    """``fn(src, index)``, a scatter of the rows of ``src`` to the rows
+    ``index`` names, reduced by ``reduce`` ("amax" or "amin") with no
+    initial values. On a DTensor ``src`` split along its rows (edges), each
+    rank scatters its rows and the results are reduced over the ranks (an
+    all-reduce of the maximum or minimum), as GSPMD partitions a segment
+    maximum over a split operand; its other splits are kept. The gradient
+    goes to each row equal to its result, split among the ties, as
+    torch's own."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(src, DTensor):
+        return fn(src, index)
+    mesh = src.device_mesh
+    pl = [p if isinstance(p, Shard) else Replicate() for p in src.placements]
+    return _Extremum.apply(
+        src.redistribute(mesh, pl),
+        as_dtensor(index, mesh).redistribute(
+            mesh, [p if p == Shard(0) else Replicate() for p in pl]),
+        fn, reduce)
+
+
+def take_sharded(fn, t, dim: int, idx):
+    """``fn(t, idx)`` for an ``fn`` that reads ``t`` along ``dim`` only at
+    the positions ``idx`` holds (a gather or an index), each result element
+    from one position, the result's dim 0 being ``idx``'s and its last dims
+    ``t``'s dims after ``dim``. On DTensors each rank runs ``fn`` on its
+    blocks, so no DTensor gather or index runs: where ``t`` is split along
+    ``dim``, on its block with the positions moved into it, the elements
+    whose position lies in another block zeroed, and the partial results
+    summed over those mesh dims (a masked local gather and an all-reduce,
+    as GSPMD partitions a gather from a sharded operand dim, never a
+    gather of ``t``); ``idx``'s split of its dim 0 is kept (a dim 0 of
+    ``t`` split the same way is the same batch), and so are ``t``'s splits
+    of the dims after ``dim``; both are replicated over the other mesh
+    dims. The result keeps those splits, its partial sums reduced
+    (:func:`keep_split`)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(t, DTensor):
+        return fn(t, idx)
+    mesh = t.device_mesh
+    dim %= t.ndim
+    idx = as_dtensor(idx, mesh)
+    lays = []          # (t, idx, t's gradient, result or trailing dim)
+    for p, q in zip(t.placements, idx.placements):
+        if p == Shard(dim):                         # a block of the positions
+            lays.append((p, Replicate(), p, Partial()))
+        elif isinstance(p, Shard) and p.dim > dim:  # carried to the result
+            lays.append((p, Replicate(), p, p.dim - t.ndim))
+        elif q == Shard(0) and (p == Shard(0) or not isinstance(p, Shard)):
+            tp = p if p == Shard(0) else Replicate()             # the batch
+            lays.append((tp, q, p if p == Shard(0) else Partial(), q))
+        else:
+            lays.append((Replicate(),) * 4)
+    tpl, ipl, gpl, opl = zip(*lays)
+    t = t.redistribute(mesh, tpl)
+    tl = t.to_local(grad_placements=gpl)
+    il = idx.redistribute(mesh, ipl).to_local()
+    if Shard(dim) not in tpl:
+        out = fn(tl, il)
+    else:
+        size = tl.shape[dim]
+        pos = il - block_index(t, dim) * size
+        inside = (pos >= 0) & (pos < size)
+        out = fn(tl, pos.clamp(0, size - 1))
+        inside = inside.reshape(inside.shape + (1,) * (out.ndim - inside.ndim))
+        out = torch.where(inside, out, torch.zeros((), dtype=out.dtype,
+                                                   device=out.device))
+    opl = [Shard(out.ndim + o) if isinstance(o, int) else o for o in opl]
+    out = DTensor.from_local(out, mesh, opl, run_check=False)
+    return keep_split(out, [0] + [p.dim for p in opl if isinstance(p, Shard)])
+
+
+# ---------------------------------------------------------------------------
 # Per-rank programs (the counterpart of shard_map): each rank runs a
 # function on its own block; collectives are torch.distributed calls on the
 # mesh axis groups.
@@ -292,7 +526,6 @@ def local_block(t, mesh, spec: P):
 
 
 def _all_reduce_sum(t, group):
-    import torch
     import torch.distributed as dist
 
     class AllReduceSum(torch.autograd.Function):

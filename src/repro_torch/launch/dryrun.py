@@ -14,14 +14,22 @@ the port that runs on the CPU by default (and needs no card). The world is
 overrides it, as in the JAX package.
 
 Differences from the JAX package's dry-run, which compiles with XLA:
-  * GSPMD always finds a partitioning. DTensor has no sharding rule for
-    some operations, or produces layouts it cannot take further; such an
-    operation runs on inputs replicated over the mesh dims that stop it
-    (the set that adds the least work first), and the record lists it under
-    ``replicated_ops`` with its count. A step that still fails is recorded
+  * GSPMD propagates one layout through the step; DTensor picks one
+    operation by operation. The model code therefore states the layouts
+    GSPMD would reach, through the mesh layer's helpers
+    (``distributed.sharding``): the activations keep their batch split
+    (``keep_batch``), a gather from a split dim is a masked local gather
+    and an all-reduce (``take_sharded``: the LM's embedding and its loss's
+    gold logits, Wide & Deep's tables), a segment maximum over split edges
+    reduces across the ranks (``scatter_extremum``), and what is
+    independent per batch row, head, group, node or edge runs on each
+    rank's blocks (``on_shards``: attention, the MoE block, MACE's and
+    EquiformerV2's products). No cell replicates an operation. An
+    operation that DTensor still cannot shard would run on inputs
+    replicated over the mesh dims that stop it (the set that adds the
+    least work first), and the record would list it under
+    ``replicated_ops`` with its count; a step that still fails is recorded
     ``ok: false`` with its error.
-  * Attention runs on each rank's local shards (``transformer._attend``),
-    as GSPMD partitions it over batch and heads.
   * The per-device FLOPs, bytes and collective bytes come from
     ``hlo_analysis.StepRecorder`` on the ranks' local operations.
     ``flops_per_device`` and ``dot_flops_per_device`` are the same count
@@ -62,11 +70,6 @@ from torch.utils._python_dispatch import TorchDispatchMode
 DEFAULT_OUT = "build/repro_torch/dryrun"
 
 
-# operations whose masked partial result (a row gather from a row-sharded
-# table) DTensor reduces correctly; from other operations it cannot
-_MASKED_OK = frozenset({"aten.index.Tensor", "aten.embedding.default"})
-
-
 class ReplicateOnFailure(TorchDispatchMode):
     """Runs a DTensor operation that DTensor cannot shard on inputs
     replicated over the mesh dims that stop it, the cheapest set first
@@ -76,10 +79,10 @@ class ReplicateOnFailure(TorchDispatchMode):
     runs so on copies, and its target then takes the result in its own
     layout; a plain target runs on the full replicas of the other inputs.
     "Cannot shard" is an error, or an output that DTensor cannot take
-    further (a strided shard, a masked partial sum outside a table gather,
-    or a local shard whose shape disagrees with its layout). ``self.replicated`` counts each such operation. The
-    operations of a discarded attempt are taken back out of ``record`` (a
-    ``StepRecord``)."""
+    further (a strided shard, a masked partial sum, or a local shard whose
+    shape disagrees with its layout). ``self.replicated`` counts each such
+    operation. The operations of a discarded attempt are taken back out of
+    ``record`` (a ``StepRecord``)."""
 
     def __init__(self, record=None):
         super().__init__()
@@ -98,8 +101,8 @@ class ReplicateOnFailure(TorchDispatchMode):
         ok_types = (Shard, Replicate, Partial)
 
         def usable(out):
-            return all(all(type(p) in ok_types or name in _MASKED_OK
-                           for p in o.placements) and _consistent(o)
+            return all(all(type(p) in ok_types for p in o.placements)
+                       and _consistent(o)
                        for o in tree_leaves(out) if isinstance(o, DTensor))
 
         snap = self.record.snapshot() if self.record is not None else None

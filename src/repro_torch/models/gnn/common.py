@@ -7,7 +7,11 @@ utilities. Mirrors ``repro.models.gnn.common``:
   * ``scatter_max``/``scatter_min`` are ``scatter_reduce`` with
     ``include_self=False`` over a tensor filled with -inf/+inf, so an empty
     segment gives -inf/+inf as ``segment_max``/``segment_min`` do; their
-    gradient splits evenly among tied maxima (minima), as JAX's does.
+    gradient splits evenly among tied maxima (minima), as JAX's does. On
+    DTensors with the edges split, each rank reduces its edges and the
+    ranks' results are reduced in turn (``sharding.scatter_extremum``);
+    ``scatter_sum`` and ``rows_of`` (the nodes' rows at an edge index) run
+    on each rank's edges too, so no DTensor scatter or gather runs.
   * ``mlp_params(gen, dims)`` draws from ``gen`` on ``gen.device``.
 """
 from __future__ import annotations
@@ -17,6 +21,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ...distributed.sharding import (keep_split, on_shards, scatter_extremum,
+                                     take_sharded)
 
 Pytree = dict
 
@@ -61,15 +68,30 @@ class GraphBatch:
 
 def scatter_sum(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int
                 ) -> torch.Tensor:
-    out = messages.new_zeros((n_nodes,) + tuple(messages.shape[1:]))
-    return out.index_add(0, dst, messages)
+    def add(m, d):
+        return m.new_zeros((n_nodes,) + tuple(m.shape[1:])).index_add(0, d, m)
+
+    # on DTensors each rank adds its edges: the nodes' partial sums
+    rows = tuple(f"dim{i}" for i in range(1, messages.dim()))
+    out = on_shards(add, (messages, dst), (("edge",) + rows, ("edge",)),
+                    (None,) + rows)
+    return keep_split(out, range(1, messages.dim()))
+
+
+def rows_of(t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``t[index]``: the rows of the nodes ``index`` names (on DTensors a
+    local gather per rank, ``sharding.take_sharded``)."""
+    return take_sharded(lambda a, i: a[i], t, 0, index)
 
 
 def _scatter_extremum(messages, dst, n_nodes, reduce, fill):
-    out = messages.new_full((n_nodes,) + tuple(messages.shape[1:]), fill)
-    idx = dst.long().view((-1,) + (1,) * (messages.dim() - 1))
-    return out.scatter_reduce(0, idx.expand_as(messages), messages, reduce,
-                              include_self=False)
+    def scatter(m, d):
+        out = m.new_full((n_nodes,) + tuple(m.shape[1:]), fill)
+        idx = d.view((-1,) + (1,) * (m.dim() - 1))
+        return out.scatter_reduce(0, idx.expand_as(m), m, reduce,
+                                  include_self=False)
+
+    return scatter_extremum(scatter, messages, dst.long(), reduce)
 
 
 def scatter_max(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int
@@ -95,9 +117,9 @@ def scatter_softmax(scores: torch.Tensor, dst: torch.Tensor, n_nodes: int
     scores: (E, H)."""
     smax = scatter_max(scores, dst, n_nodes)
     smax = torch.where(torch.isfinite(smax), smax, 0.0)
-    ex = torch.exp(scores - smax[dst])
+    ex = torch.exp(scores - rows_of(smax, dst))
     denom = scatter_sum(ex, dst, n_nodes)
-    return ex / (denom[dst] + 1e-16)
+    return ex / (rows_of(denom, dst) + 1e-16)
 
 
 def degrees(dst: torch.Tensor, n_nodes: int, edge_mask=None) -> torch.Tensor:
@@ -145,7 +167,8 @@ def node_nll(logits: torch.Tensor, labels: torch.Tensor, node_mask=None
     class 0 and masked out: the reference's ``take_along_axis`` wraps it
     and its mask zeroes the term; torch's gather would raise on it."""
     logz = torch.logsumexp(logits, -1)
-    gold = torch.gather(logits, -1, labels.long().clamp(min=0)[:, None])[:, 0]
+    gold = take_sharded(lambda t, i: torch.gather(t, -1, i), logits, -1,
+                        labels.long().clamp(min=0)[:, None])[:, 0]
     mask = (labels >= 0).float()
     if node_mask is not None:
         mask = mask * node_mask

@@ -25,10 +25,11 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ...distributed.sharding import keep_batch, keep_split, on_shards
 from .. import params_from_arrays  # noqa: F401  (re-exported)
 from . import so3
-from .common import (GraphBatch, mlp_apply, mlp_params, scatter_softmax,
-                     scatter_sum)
+from .common import (GraphBatch, mlp_apply, mlp_params, rows_of,
+                     scatter_softmax, scatter_sum)
 from .mace import _bessel, _blocks
 
 
@@ -43,7 +44,8 @@ class EquiformerV2Config:
     n_species: int = 16
     n_rbf: int = 8
     r_cut: float = 5.0
-    # the reference's channel sharding over this mesh axis (not ported)
+    # pin the irrep features' channel dim to this mesh axis (``_cshard``),
+    # as the reference's channel sharding does
     channel_shard_axis: str = ""
 
     @property
@@ -121,7 +123,22 @@ def _irrep_norm(h, gains, l_max):
 def _so2_conv(feat_edge, so2_w, radial, msets, order, C):
     """feat_edge: (E, dim, C) in edge frame. Per-|m| dense mixing over
     (l-stack x channels); radial (E, C) modulates channels. ``msets`` and
-    ``order`` from ``_m_index_tensors``: rows above m_max stay zero."""
+    ``order`` from ``_m_index_tensors``: rows above m_max stay zero. The
+    mixing is independent per edge, so on DTensors each rank convolves its
+    edges with the whole weights (``sharding.on_shards``)."""
+    ws = [w[k] for w in so2_w for k in ("wr", "wi")]
+
+    def conv(f, r, *ws):
+        return _so2_terms(f, [{"wr": a, "wi": b}
+                              for a, b in zip(ws[::2], ws[1::2])],
+                          r, msets, order, C)
+
+    return on_shards(conv, (feat_edge, radial, *ws),
+                     (("edge", None, None), ("edge", None))
+                     + ((None, None),) * len(ws), ("edge", None, None))
+
+
+def _so2_terms(feat_edge, so2_w, radial, msets, order, C):
     outs = []
     for (rows_c, rows_s), w in zip(msets, so2_w):
         nl = rows_c.numel()
@@ -158,7 +175,7 @@ def forward(params, g: GraphBatch, cfg: EquiformerV2Config):
     h = _cshard(cfg, torch.cat([emb[:, None, :],
                                 emb.new_zeros((N, dim - 1, C))], 1))
 
-    vec = g.pos[g.dst] - g.pos[g.src]
+    vec = rows_of(g.pos, g.dst) - rows_of(g.pos, g.src)
     r = torch.linalg.norm(vec + 1e-12, dim=-1)
     r_hat = vec / (r[:, None] + 1e-9)
     rbf = _bessel(r, cfg.n_rbf, cfg.r_cut)
@@ -168,7 +185,8 @@ def forward(params, g: GraphBatch, cfg: EquiformerV2Config):
 
     # (E, dim, dim), fp32 as in the reference, promoted to the features'
     # dtype as the reference's einsum promotes it
-    D = so3.edge_frame_wigner(r_hat, cfg.l_max).to(h.dtype)
+    D = on_shards(lambda r: so3.edge_frame_wigner(r, cfg.l_max), (r_hat,),
+                  (("edge", None),), ("edge", None, None)).to(h.dtype)
     Dt = D.transpose(1, 2)
 
     for lp in params["layers"]:
@@ -176,20 +194,30 @@ def forward(params, g: GraphBatch, cfg: EquiformerV2Config):
         radial = mlp_apply(lp["radial"], rbf) * edge_valid[:, None]  # (E, C)
 
         # eSCN message: rotate -> per-m SO(2) mixing -> rotate back
-        src_feat = torch.bmm(D, hn[g.src])
+        src_feat = torch.bmm(D, rows_of(hn, g.src))
         msg_edge = _so2_conv(src_feat, lp["so2"], radial, msets, order, C)
         msg = torch.bmm(Dt, msg_edge)                     # back to global
 
         # attention over incoming edges from invariant channels
-        inv = torch.cat([hn[g.dst][:, 0, :], msg[:, 0, :]], -1)
+        inv = torch.cat([rows_of(hn, g.dst)[:, 0, :], msg[:, 0, :]], -1)
         logits = mlp_apply(lp["attn"], inv)               # (E, H)
         if g.edge_mask is not None:
             logits = torch.where(g.edge_mask[:, None] > 0, logits, -1e30)
         att = scatter_softmax(logits, g.dst, N)           # (E, H)
         # heads gate channel groups
-        att_c = torch.repeat_interleave(att, C // H, dim=-1)   # (E, C)
-        val = torch.einsum("eic,cd->eid", msg, lp["w_val"])
-        h = h + _cshard(cfg, scatter_sum(val * att_c[:, None, :], g.dst, N))
+        # the gate pinned to its edge split (its gradient's view into the
+        # heads' channel groups cannot follow a channel split); the value
+        # product on each rank's edges (its gradient's views cannot follow
+        # DTensor's layout of the saved message)
+        att_c = keep_batch(torch.repeat_interleave(att, C // H, dim=-1))
+        val = on_shards(lambda m, w: torch.einsum("eic,cd->eid", m, w),
+                        (msg, lp["w_val"]), (("edge", None, None),
+                                             (None, None)),
+                        ("edge", None, None))
+        # nodes whole, channels as split, as the reference's specs lay out
+        # the node features
+        h = keep_split(h + _cshard(cfg, scatter_sum(val * att_c[:, None, :],
+                                                    g.dst, N)), (2,))
 
         # equivariant FFN: scalars gate all l-blocks
         hn2 = _irrep_norm(h, lp["ln"], cfg.l_max)
@@ -199,7 +227,7 @@ def forward(params, g: GraphBatch, cfg: EquiformerV2Config):
             torch.einsum("nmc,cd->nmd", hn2[:, sl, :], lp["ffn_mix"][l])
             * (F.silu(g1) if l == 0 else torch.sigmoid(g2))[:, None, :]
             for l, sl in enumerate(blocks)], 1)
-        h = h + _cshard(cfg, up)
+        h = keep_split(h + _cshard(cfg, up), (2,))
 
     node_e = mlp_apply(params["readout"], h[:, 0, :])[:, 0]
     if g.node_mask is not None:

@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import params_from_arrays  # noqa: F401  (re-exported)
-from .common import GraphBatch, node_nll, scatter_softmax, scatter_sum
+from .common import (GraphBatch, node_nll, rows_of, scatter_softmax,
+                     scatter_sum)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,17 +59,18 @@ def forward(params, g: GraphBatch, cfg: GATConfig):
     for lp in params["layers"]:
         hw = torch.einsum("nd,dhe->nhe", h, lp["W"])        # (N, H, dh)
         if cfg.v2:
-            z = hw[g.src] + hw[g.dst]                        # (E, H, dh)
+            z = rows_of(hw, g.src) + rows_of(hw, g.dst)        # (E, H, dh)
             scores = torch.einsum("ehd,hd->eh", F.leaky_relu(z, slope),
                                   lp["a_src"])
         else:
             s_src = torch.einsum("nhe,he->nh", hw, lp["a_src"])
             s_dst = torch.einsum("nhe,he->nh", hw, lp["a_dst"])
-            scores = F.leaky_relu(s_src[g.src] + s_dst[g.dst], slope)
+            scores = F.leaky_relu(rows_of(s_src, g.src)
+                                  + rows_of(s_dst, g.dst), slope)
         if g.edge_mask is not None:
             scores = torch.where(g.edge_mask[:, None] > 0, scores, -1e30)
         alpha = scatter_softmax(scores, g.dst, n)            # (E, H)
-        msg = hw[g.src] * alpha[..., None]
+        msg = rows_of(hw, g.src) * alpha[..., None]
         agg = scatter_sum(msg.reshape(-1, H * dh), g.dst, n)
         h = F.elu(agg) + h
     return h @ params["head"]

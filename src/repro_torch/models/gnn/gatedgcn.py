@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import params_from_arrays  # noqa: F401  (re-exported)
-from .common import GraphBatch, graph_pool, node_nll, scatter_sum
+from .common import GraphBatch, graph_pool, node_nll, rows_of, scatter_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,12 +73,12 @@ def forward(params, g: GraphBatch, cfg: GatedGCNConfig):
         lp = {k: v[i] for k, v in layers.items()}
         eh = h @ lp["A"]
         msg_src = h @ lp["B"]
-        e = e + F.relu(_ln(eh[g.src] + msg_src[g.dst] + e @ lp["C"],
-                           lp["ln_e"]))
+        e = e + F.relu(_ln(rows_of(eh, g.src) + rows_of(msg_src, g.dst)
+                           + e @ lp["C"], lp["ln_e"]))
         gate = torch.sigmoid(e)
         if g.edge_mask is not None:
             gate = gate * g.edge_mask[:, None]
-        vh = (h @ lp["V"])[g.src]
+        vh = rows_of(h @ lp["V"], g.src)
         num = scatter_sum(gate * vh, g.dst, n)
         den = scatter_sum(gate, g.dst, n) + 1e-6
         h = h + F.relu(_ln(h @ lp["U"] + num / den, lp["ln_h"]))

@@ -18,9 +18,10 @@ import math
 
 import torch
 
+from ...distributed.sharding import keep_split, on_shards
 from .. import params_from_arrays  # noqa: F401  (re-exported)
 from . import so3
-from .common import GraphBatch, mlp_apply, mlp_params, scatter_sum
+from .common import GraphBatch, mlp_apply, mlp_params, rows_of, scatter_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,7 +107,16 @@ def _path_sum(contribs: dict, like: torch.Tensor, l_max: int):
 
 def _cg_combine(a, b, l_max, path_w, paths):
     """a, b: (B, dim, C) irreps; path_w: (n_paths, C) or per-path list.
-    Returns (B, dim, C) = sum over paths of weighted CG products."""
+    Returns (B, dim, C) = sum over paths of weighted CG products. The
+    products are independent per node and channel, so on DTensors each
+    rank combines its blocks (``sharding.on_shards``)."""
+    irreps = ("node", None, "channel")
+    return on_shards(lambda a, b, w: _cg_terms(a, b, l_max, w, paths),
+                     (a, b, path_w), (irreps, irreps, (None, "channel")),
+                     irreps)
+
+
+def _cg_terms(a, b, l_max, path_w, paths):
     contribs: dict = {}
     for pi, (l1, l2, l3) in enumerate(paths):
         Ct = so3.real_cg_tensor(l1, l2, l3, a.device, a.dtype)
@@ -130,10 +140,11 @@ def forward(params, g: GraphBatch, cfg: MACEConfig):
     emb = params["species_embed"][g.species]
     h = torch.cat([emb[:, None, :], emb.new_zeros((N, dim - 1, C))], 1)
 
-    vec = g.pos[g.dst] - g.pos[g.src]
+    vec = rows_of(g.pos, g.dst) - rows_of(g.pos, g.src)
     r = torch.linalg.norm(vec + 1e-12, dim=-1)
     r_hat = vec / (r[:, None] + 1e-9)
-    Y = so3.real_sph_harm(r_hat, cfg.l_max)          # (E, dim)
+    Y = on_shards(lambda r: so3.real_sph_harm(r, cfg.l_max), (r_hat,),
+                  (("edge", None),), ("edge", None))          # (E, dim)
     rbf = _bessel(r, cfg.n_rbf, cfg.r_cut)           # (E, n_rbf)
     edge_valid = (r > 1e-6).float()                  # zero-length edges are
     if g.edge_mask is not None:                      # frame-degenerate: drop
@@ -143,12 +154,14 @@ def forward(params, g: GraphBatch, cfg: MACEConfig):
 
     energies = 0.0
     for lp, readout in zip(params["layers"], params["readouts"]):
-        radial = mlp_apply(lp["radial"], rbf) * edge_valid[:, None]
-        radial = radial.reshape(-1, len(paths), C)
+        radial = on_shards(lambda r: r.reshape(-1, len(paths), C),
+                           (mlp_apply(lp["radial"], rbf)
+                            * edge_valid[:, None],),
+                           (("edge", None),), ("edge", None, None))
 
         # --- A-basis: per-path CG of Y (as (E, dim, 1)) with h_src ---
         contribs: dict = {}
-        h_src = h[g.src]
+        h_src = rows_of(h, g.src)
         for pi, (l1, l2, l3) in enumerate(paths):
             Ct = so3.real_cg_tensor(l1, l2, l3, dev, h.dtype)
             s1, s2 = l1 * l1, l2 * l2
@@ -157,7 +170,8 @@ def forward(params, g: GraphBatch, cfg: MACEConfig):
                                h_src[:, s2:s2 + 2 * l2 + 1, :], Ct)
             msg = msg * radial[:, pi, None, :]
             contribs.setdefault(l3, []).append(scatter_sum(msg, g.dst, N))
-        A = _path_sum(contribs, h, cfg.l_max)
+        # nodes whole, channels split, as the reference's specs lay them out
+        A = keep_split(_path_sum(contribs, h, cfg.l_max), (2,))
         # per-l channel mixing of the aggregated A-basis
         A = torch.cat([torch.einsum("nmc,cd->nmd", A[:, sl, :], lp["w_msg"][l])
                        for l, sl in enumerate(blocks)], 1)
@@ -167,12 +181,12 @@ def forward(params, g: GraphBatch, cfg: MACEConfig):
         B3 = _cg_combine(B2, A, cfg.l_max, lp["w_p3"], paths)
 
         # --- update: per-l self-interaction + weighted B-basis sum ---
-        h = torch.cat([
+        h = keep_split(torch.cat([
             torch.einsum("nmc,cd->nmd", h[:, sl, :], lp["w_self"][l])
             + lp["w_comb"][0, l] * A[:, sl, :]
             + lp["w_comb"][1, l] * B2[:, sl, :]
             + lp["w_comb"][2, l] * B3[:, sl, :]
-            for l, sl in enumerate(blocks)], 1)
+            for l, sl in enumerate(blocks)], 1), (2,))
 
         # --- readout from invariants ---
         node_e = mlp_apply(readout, h[:, 0, :])[:, 0]     # (N,)

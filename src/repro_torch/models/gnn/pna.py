@@ -14,7 +14,8 @@ import torch
 
 from .. import params_from_arrays  # noqa: F401  (re-exported)
 from .common import (GraphBatch, degrees, graph_pool, mlp_apply, mlp_params,
-                     node_nll, scatter_max, scatter_mean, scatter_min)
+                     node_nll, rows_of, scatter_max, scatter_mean,
+                     scatter_min)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +55,8 @@ def forward(params, g: GraphBatch, cfg: PNAConfig):
     has = deg[:, None] > 0
 
     for lp in params["layers"]:
-        m = mlp_apply(lp["msg"], torch.cat([h[g.src], h[g.dst]], -1))
+        m = mlp_apply(lp["msg"], torch.cat([rows_of(h, g.src),
+                                            rows_of(h, g.dst)], -1))
         if g.edge_mask is not None:
             m = m * g.edge_mask[:, None]
         mean = scatter_mean(m, g.dst, n)

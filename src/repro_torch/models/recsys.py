@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import take_sharded
 from . import params_from_arrays  # noqa: F401  (re-exported)
 
 _M32 = 0xFFFFFFFF
@@ -76,8 +77,18 @@ def _mul32(a: torch.Tensor, k: int) -> torch.Tensor:
     """``a * k`` modulo 2**32 for int64 ``a`` in [0, 2**32): the product
     in two 16-bit halves of ``a``, so no int64 product overflows."""
     lo = (a & 0xFFFF) * k
-    hi = (((a >> 16) * k) & 0xFFFF) << 16
+    hi = _shl((_shr(a, 16) * k) & 0xFFFF, 16)
     return (lo + hi) & _M32
+
+
+# ``torch.bitwise_*_shift``, not ``<<``/``>>``: DTensor gets the operators'
+# scalar overloads wrong (torch 2.13), the functions right
+def _shl(a: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.bitwise_left_shift(a, n)
+
+
+def _shr(a: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.bitwise_right_shift(a, n)
 
 
 def _hash_cross(sparse_idx: torch.Tensor, wide_hash: int) -> torch.Tensor:
@@ -86,8 +97,8 @@ def _hash_cross(sparse_idx: torch.Tensor, wide_hash: int) -> torch.Tensor:
     uint32 (``*`` binds tighter than ``^``), modulo ``wide_hash``."""
     u = sparse_idx.long() & _M32                     # int32 -> uint32 bits
     a, b = u[:, :-1], u[:, 1:]
-    h = _mul32(a, 2654435761) ^ ((b + 0x9E3779B9 + ((a << 6) & _M32)
-                                  + (a >> 2)) & _M32)
+    h = _mul32(a, 2654435761) ^ ((b + 0x9E3779B9 + (_shl(a, 6) & _M32)
+                                  + _shr(a, 2)) & _M32)
     return (h % wide_hash).to(torch.int32)
 
 
@@ -95,7 +106,8 @@ def _embed(params, sparse_idx: torch.Tensor) -> torch.Tensor:
     """(B, F, D): row ``sparse_idx[b, f]`` of table ``f``."""
     tables = params["tables"]
     fields = torch.arange(tables.shape[0], device=sparse_idx.device)
-    return tables[fields[None, :], sparse_idx.long()]
+    return take_sharded(lambda t, i: t[fields[None, :], i], tables, 1,
+                        sparse_idx.long())
 
 
 def _deep(params, dense, sparse_idx) -> torch.Tensor:
@@ -111,7 +123,8 @@ def forward(params, dense: torch.Tensor, sparse_idx: torch.Tensor,
     """dense: (B, n_dense) float; sparse_idx: (B, F) int. Returns logits."""
     deep_logit = (_deep(params, dense, sparse_idx) @ params["head"])[:, 0]
     cross_ids = _hash_cross(sparse_idx, cfg.wide_hash)      # (B, F-1)
-    wide_logit = params["wide"][cross_ids.long()].sum(-1)
+    wide_logit = take_sharded(lambda t, i: t[i], params["wide"], 0,
+                              cross_ids.long()).sum(-1)
     return deep_logit + wide_logit
 
 

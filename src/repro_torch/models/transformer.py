@@ -35,10 +35,13 @@ reference's shard_map blocks become per-rank programs on each rank's block
 collectives and hand back the full tensor: the sequence-sharded decode
 attention (:func:`_dist_decode_attention`) and the expert-parallel MoE
 (:func:`_moe_block_shard_map`). Given DTensors (the dry-run), the same
-blocks are the DTensors' local shards and the results DTensors again;
-attention, which is independent per batch row and head, then runs on the
-local shards too (:func:`_attend`), and :func:`_ep_constraint` pins the MoE
-buffers' layout.
+blocks are the DTensors' local shards and the results DTensors again; the
+residual stream keeps its batch split (``sharding.keep_batch``), the
+embedding and the loss's gold logits are masked gathers from the
+vocab-split tables (``sharding.take_sharded``), and attention and the MoE
+block, independent per batch row and head or per group, run on each rank's
+blocks (:func:`_attend`, :func:`_moe_block_shards`); on plain tensors none
+of them changes a value.
 """
 from __future__ import annotations
 
@@ -49,6 +52,8 @@ from typing import Any, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (as_dtensor, block_index, keep_batch,
+                                    keep_split, on_shards, take_sharded)
 from ..kernels.flash_attention.ops import flash_attention
 from . import params_from_arrays  # noqa: F401  (re-exported)
 
@@ -326,15 +331,6 @@ def _is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
-def _as_dtensor(t, mesh):
-    """``t`` as a DTensor on ``mesh``: itself, or a replicated one."""
-    from torch.distributed.tensor import DTensor, Replicate
-    if isinstance(t, DTensor):
-        return t
-    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                              run_check=False)
-
-
 def _write_cache_shards(c, new, cache_lengths):
     """The cache write on each rank's shard of a DTensor cache ``c``
     sharded over batch, kv heads or positions: ``new`` and the lengths are
@@ -348,20 +344,16 @@ def _write_cache_shards(c, new, cache_lengths):
     npl = [p if p in (Shard(0), Shard(1)) else Replicate() for p in cpl]
     lpl = [p if p == Shard(0) else Replicate() for p in cpl]
     cl = c.to_local()
-    nl = _as_dtensor(new, mesh).redistribute(mesh, npl).to_local()
-    ll = _as_dtensor(cache_lengths, mesh).redistribute(mesh, lpl).to_local()
+    nl = as_dtensor(new, mesh).redistribute(mesh, npl).to_local()
+    ll = as_dtensor(cache_lengths, mesh).redistribute(mesh, lpl).to_local()
     if Shard(2) not in cpl:
         _write_cache(cl, nl, ll)
         return c
     M = c.shape[2]
     Bl, _, Ml, _ = cl.shape
     S = nl.shape[2]
-    block = 0                       # this rank's position block, major first
-    for j, p in enumerate(cpl):
-        if p == Shard(2):
-            block = block * mesh.size(j) + mesh.get_local_rank(j)
     pos = (ll.clamp(0, M - S)[:, None]
-           + torch.arange(S, device=cl.device)) - block * Ml
+           + torch.arange(S, device=cl.device)) - block_index(c, 2) * Ml
     mine = (pos >= 0) & (pos < Ml)
     # positions of other blocks land in a spare slot past the block's end
     ext = torch.cat([cl, cl[:, :, :1]], 2)
@@ -423,9 +415,43 @@ def _moe_block(x, router_w, w_in, w_gate, w_out, cfg: TransformerConfig):
     reference's scatter of the kept rows). Combine: each token's k expert
     outputs times their gates, summed in ascending expert order in
     ``cfg.dtype``."""
+    if _is_dtensor(x):
+        return _moe_block_shards(x, router_w, w_in, w_gate, w_out, cfg)
     r = _moe_route(x, router_w, cfg)
     out = _moe_experts(x, r, w_in, w_gate, w_out, cfg, 0)
     return out, _moe_aux(r, cfg)
+
+
+def _moe_block_shards(x, router_w, w_in, w_gate, w_out,
+                      cfg: TransformerConfig):
+    """:func:`_moe_block` on DTensors, as GSPMD partitions it: routing is
+    independent per group, so each rank routes the groups of its block of
+    ``x`` (G split over the data axes) and runs its block of the experts
+    (E, or else their hidden dim, split over 'model'); the output is a
+    partial sum over the experts' mesh dims (:func:`on_shards`). The
+    balance loss's two means leave the ranks as partial sums and meet
+    before their product, so ``aux`` is the whole batch's, as
+    :func:`_moe_aux`'s."""
+    E, n, F_ = cfg.n_experts, x.shape[0] * x.shape[1], cfg.d_ff
+
+    def block(xl, rl, wi, wg, wo):
+        base = block_index(w_in, 0) * wi.shape[0] if wi.shape[0] < E else 0
+        # ranks holding other blocks of the same experts route alike:
+        # each adds its share of the means
+        share = wi.shape[0] * wi.shape[2] / (E * F_)
+        r = _moe_route(xl, rl, cfg)
+        first = r.idx[..., :1] == torch.arange(E, device=xl.device)
+        return (_moe_experts(xl, r, wi, wg, wo, cfg, base),
+                first.float().sum((0, 1)) * share,
+                torch.softmax(r.logits, -1).sum((0, 1)) * share)
+
+    w = ("expert", None, "hidden")
+    out, me, ce = on_shards(
+        block, (x, router_w, w_in, w_gate, w_out),
+        (("group", None, None), (None, None), w, w,
+         ("expert", "hidden", None)),
+        (("group", None, None), (None,), (None,)))
+    return out, E * ((me / n) * (ce / n)).sum()
 
 
 def _moe_experts(x, r: Route, w_in, w_gate, w_out, cfg: TransformerConfig,
@@ -574,26 +600,13 @@ def _dist_decode_attention(q, k, v, lengths, cfg: TransformerConfig):
 
 
 def _attend(fn, q, k, v, lengths):
-    """``fn(q, k, v, lengths)``; on DTensors, run on each rank's local
-    shards. Attention is independent per batch row and per head, so it
-    keeps the mesh dims over which q, k and v are all sharded on the batch
-    (dim 0) or all on the heads (dim 1), replicates them over the others,
-    and returns the shards' outputs as a DTensor of that layout."""
-    if not _is_dtensor(q):
-        return fn(q, k, v, lengths)
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    mesh = q.device_mesh
-    k, v = _as_dtensor(k, mesh), _as_dtensor(v, mesh)
-    keep = []
-    for j in range(mesh.ndim):
-        ps = {q.placements[j], k.placements[j], v.placements[j]}
-        keep.append(ps.pop() if len(ps) == 1 and ps <= {Shard(0), Shard(1)}
-                    else Replicate())
-    lpl = [p if p == Shard(0) else Replicate() for p in keep]
-    o = fn(*(t.redistribute(mesh, keep).to_local() for t in (q, k, v)),
-           _as_dtensor(lengths, mesh).redistribute(mesh, lpl).to_local())
-    return DTensor.from_local(o, mesh, keep, run_check=False)
+    """``fn(q, k, v, lengths)``. Attention is independent per batch row and
+    per head, so on DTensors it runs on each rank's blocks
+    (:func:`on_shards`): over the mesh dims that split q, k and v alike on
+    the batch or the heads; the others are replicated."""
+    heads = ("batch", "head", None, None)
+    return on_shards(fn, (q, k, v, lengths),
+                     (heads, heads, heads, ("batch",)), heads)
 
 
 # ---------------------------------------------------------------------------
@@ -628,7 +641,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, *,
     d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
     dev = tokens.device
     dt = cfg.dtype
-    x = params["embed"][tokens].to(dt)
+    x = keep_batch(take_sharded(lambda t, i: t[i], params["embed"], 0,
+                                tokens)).to(dt)
 
     if cache is not None:
         positions = cache_lengths[:, None] + torch.arange(S, device=dev)[None]
@@ -680,7 +694,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, *,
                 *a, True, cfg.q_chunk, cfg.kv_chunk, cfg.attn_window),
                 q, katt, vatt, total_lengths)
         o = o.transpose(1, 2).reshape(B, S, h * dh)
-        x = x + o @ lp["wo"].to(dt)
+        x = keep_batch(x + o @ lp["wo"].to(dt))
 
         xm = _norm(x, lp["ln2"], lp.get("ln2_b"))
         if cfg.is_moe:
@@ -691,14 +705,14 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, *,
             y, aux = block(xm.reshape(G, B * S // G, d), lp["router"],
                            lp["w_in"], lp.get("w_gate"), lp["w_out"], cfg)
             auxes.append(aux)
-            x = x + y.reshape(B, S, d)
+            x = keep_batch(x + y.reshape(B, S, d))
         else:
             hmid = xm @ lp["w_in"].to(dt)
             if cfg.mlp == "swiglu":
                 hmid = F.silu(xm @ lp["w_gate"].to(dt)) * hmid
             else:
                 hmid = F.gelu(hmid, approximate="tanh")  # jax.nn.gelu's
-            x = x + hmid @ lp["w_out"].to(dt)
+            x = keep_batch(x + hmid @ lp["w_out"].to(dt))
 
     x = _norm(x, params["ln_f"])
     aux_loss = (torch.stack(auxes).mean() if auxes else
@@ -737,9 +751,11 @@ def loss_fn(params, batch, cfg: TransformerConfig):
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for s0 in range(0, S, c):
         lab = labels[:, s0:s0 + c].long()
-        logits = (hidden[:, s0:s0 + c] @ head).float()
+        # batch and vocab splits kept, as the head's product leaves them
+        logits = keep_split((hidden[:, s0:s0 + c] @ head).float(), (0, 2))
         logz = torch.logsumexp(logits, -1)
-        gold = logits.gather(-1, lab.clamp_min(0)[..., None])[..., 0]
+        gold = take_sharded(lambda t, i: t.gather(-1, i), logits, -1,
+                            lab.clamp_min(0)[..., None])[..., 0]
         mask = (lab >= 0).float()
         tot = tot + ((logz - gold) * mask).sum()
         cnt = cnt + mask.sum()

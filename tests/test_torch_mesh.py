@@ -33,7 +33,8 @@ from repro_torch.core import analytics
 from repro_torch.models import params_from_arrays
 from repro_torch.models import transformer as tfm
 
-from torch_mesh_ranks import mesh_checks
+from torch_mesh_ranks import (EQUIVARIANT_MODELS, SHARDED_MODELS,
+                              mesh_checks, sharded_steps)
 from torch_spawn import run_ranks
 
 DECODE_CFG = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=96,
@@ -89,6 +90,21 @@ def inputs():
     inp["sparse"] = np.asarray(batch["sparse"])
     inp["cands"] = np.random.default_rng(6).standard_normal(
         (512, rcfg.tower_dim)).astype(np.float32)
+    n, e = 12, 32                 # a small graph, its edges over 4 ranks
+    inp["graph"] = {
+        "src": rng.integers(0, n, e).astype(np.int32),
+        "dst": rng.integers(0, n, e).astype(np.int32),
+        "edge_mask": (rng.random(e) < 0.9).astype(np.float32),
+        "x": rng.standard_normal((n, 24)).astype(np.float32),
+        "labels": rng.integers(0, 4, n).astype(np.int32),
+        "pos": rng.standard_normal((n, 3)).astype(np.float32),
+        "species": rng.integers(0, 8, n).astype(np.int32),
+        "graph_id": np.repeat(np.arange(2), n // 2).astype(np.int32),
+        "energy": rng.standard_normal(2).astype(np.float32)}
+    batch = rrecsys.random_batch(rcfg, 8, seed=7)
+    inp.update(rs_dense=np.asarray(batch["dense"]),
+               rs_sparse=np.asarray(batch["sparse"]),
+               rs_labels=np.asarray(batch["labels"]))
     return inp
 
 
@@ -334,3 +350,40 @@ def test_collectives_in_sharded_program(ranks):
         assert cb["all-gather"] == {"count": 1, "bytes": 512}
         assert cb["total_bytes"] == 2560
         np.testing.assert_array_equal(r["hlo"]["x"], np.full(64, 4.0 ** 4))
+
+
+@pytest.fixture(scope="module")
+def steps(inputs, tmp_path_factory):
+    """Each rank's results of three launches (the equivariant GNNs, the
+    slowest, one each)."""
+    out = [{} for _ in range(8)]
+    for models in (SHARDED_MODELS, *((m,) for m in EQUIVARIANT_MODELS)):
+        for mine, got in zip(out, run_ranks(
+                sharded_steps, 8, tmp_path_factory.mktemp("steps"), inputs,
+                models, timeout=300)):
+            mine.update(got)
+    return out
+
+
+@pytest.mark.parametrize("model", SHARDED_MODELS + EQUIVARIANT_MODELS)
+def test_dry_run_layouts_compute_the_plain_step(steps, model):
+    """The layouts the dry-run traces, run for real on a (2, 2, 2) pod
+    mesh of gloo ranks (parameters and batch as DTensors by the sharding
+    rules: the batch over ('pod', 'data'), heads, hidden dims, experts,
+    vocab and table rows over 'model'): the loss and every gradient equal
+    those of the plain tensors; the GNNs' edges over ('pod', 'data'), their
+    parameters' last dims over 'model', as the GNN cells lay them out.
+    Covers the residual-stream pins, the masked lookups and gathers from
+    sharded dims, the MoE block, attention, the GNN scatters and MACE's
+    and EquiformerV2's products on each rank's shards, and the edge-split
+    segment maxima (PNA and EquiformerV2 in float64: ill-conditioned in
+    fp32 in both packages)."""
+    for r in steps:
+        (loss, grads), (dloss, dgrads) = r[model]
+        np.testing.assert_allclose(dloss, loss, rtol=1e-5)
+        assert len(dgrads) == len(grads)
+        # each leaf at the gradient's scale: EquiformerV2's attention MLP
+        # has a last bias whose gradient is zero in exact arithmetic
+        scale = max(np.abs(g).max() for g in grads)
+        for g, dg in zip(grads, dgrads):
+            np.testing.assert_allclose(dg, g, rtol=1e-4, atol=1e-5 * scale)

@@ -153,6 +153,29 @@ def test_placements_split_pod_data_major_to_minor():
         shr.placements(P("data", "data"), mesh)
 
 
+def test_layout_helpers_leave_plain_tensors_alone():
+    """The mesh layer's DTensor layouts compute what the plain code does on
+    plain tensors, bit for bit: a single device's results do not change."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(6, 5, generator=g)
+    idx = torch.randint(0, 5, (6, 1), generator=g)
+    assert shr.keep_batch(x) is x and shr.keep_split(x, (1,)) is x
+    assert torch.equal(shr.take_sharded(
+        lambda t, i: t.gather(-1, i), x, -1, idx), x.gather(-1, idx))
+    a, b = torch.randn(4, 3, 2, generator=g), torch.randn(2, generator=g)
+    roles = ("n", None, "c")
+    assert torch.equal(shr.on_shards(lambda u, v: u * v, (a, b),
+                                     (roles, ("c",)), roles), a * b)
+    dst = torch.tensor([0, 2, 2, 1, 0, 2])
+
+    def scatter(m, d):
+        return torch.full((3, 5), float("-inf")).scatter_reduce(
+            0, d[:, None].expand_as(m), m, "amax", include_self=False)
+
+    assert torch.equal(shr.scatter_extremum(scatter, x, dst, "amax"),
+                       scatter(x, dst))
+
+
 # ---------------------------------------------------------------------------
 # Cost analysis (twins of test_hlo_analysis.py)
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Dry-run checks of ``tests/test_torch_dryrun.py``, run in a child
 process (the ``fake`` process group must not live in a test worker):
-``python tests/torch_dryrun_checks.py OUT_DIR`` prints one JSON object of
-results. Imports the port alone."""
+``python tests/torch_dryrun_checks.py OUT_DIR [meshes]`` prints one JSON
+object of results. Imports the port alone (and the small configs'
+arguments from ``torch_dryrun_ref_checks``, which import nothing)."""
 from __future__ import annotations
 
 import json
@@ -27,19 +28,62 @@ def _gcda_small_mesh(out_dir):
 
 
 def _tiny_lm(monkey_layers: int):
-    """A small LM standing in for qwen2-1.5b's published config."""
+    """A small LM standing in for qwen2-1.5b's published config (the
+    reference's twin: ``torch_dryrun_ref_checks.TINY_LM``)."""
     from repro_torch import configs
     from repro_torch.models.transformer import TransformerConfig
+    from torch_dryrun_ref_checks import LM_SHAPES, TINY_LM
 
     mod = configs.get("qwen2_1_5b")
-    mod.config = lambda: TransformerConfig(
-        name="tiny", n_layers=monkey_layers, d_model=64, n_heads=4,
-        n_kv_heads=2, d_ff=128, vocab=256, qkv_bias=True, q_chunk=16,
-        kv_chunk=16)
-    mod.SHAPES = {"train_4k": {"kind": "train", "seq": 32, "batch": 8},
-                  "prefill_32k": {"kind": "prefill", "seq": 64, "batch": 4},
-                  "decode_32k": {"kind": "decode", "seq": 64, "batch": 8}}
+    mod.config = lambda: TransformerConfig(**dict(TINY_LM,
+                                                  n_layers=monkey_layers))
+    mod.SHAPES = LM_SHAPES
     return mod
+
+
+def _tiny_moe():
+    """A small MoE LM standing in for OLMoE's published config (the
+    reference's twin: ``torch_dryrun_ref_checks.TINY_MOE``)."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import TransformerConfig
+    from torch_dryrun_ref_checks import MOE_SHAPES, TINY_MOE
+
+    mod = configs.get("olmoe_1b_7b")
+    mod.config = lambda: TransformerConfig(**TINY_MOE)
+    mod.SHAPES = MOE_SHAPES
+    return mod
+
+
+def _small_meshes():
+    """The small LM and MoE through train, prefill and decode, and a small
+    Wide & Deep serve cell, on fake (2, 4) and (2, 2, 4) meshes (the
+    production meshes' shapes: one and two pods)."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from torch_dryrun_ref_checks import MESHES
+
+    _tiny_lm(2)
+    _tiny_moe()
+    wd = configs.get("wide_deep")
+    wd.config = wd.smoke_config
+    wd.SHAPES = {"serve_p99": {"kind": "serve", "batch": 64}}
+    cells = [(a, s) for a in ("qwen2_1_5b", "olmoe_1b_7b")
+             for s in ("train_4k", "prefill_32k", "decode_32k")]
+    cells.append(("wide_deep", "serve_p99"))
+    out = {}
+    for name, (data, model, pod) in MESHES.items():
+        dryrun.fake_world(data * model * max(pod, 1))
+        mesh = make_local_mesh(data, model, pod, device="cpu")
+        for arch, shape in cells:
+            rec = dryrun.run_cell(arch, shape, False, "", mesh_override=mesh)
+            out[f"{arch}/{shape}/{name}"] = {
+                "ok": rec["ok"], "error": rec.get("error"),
+                "replicated_ops": rec.get("replicated_ops"),
+                "dot_flops": rec.get("dot_flops_per_device"),
+                "collectives": rec.get("collectives"),
+                "trace_s": rec.get("trace_s")}
+    return out
 
 
 def _layer_extrapolation():
@@ -71,22 +115,13 @@ def _layer_extrapolation():
 
 
 def _moe_cells():
-    """A small MoE LM (standing in for OLMoE's published config) through
-    its three kinds on a fake (2, 4) mesh: its routing runs operations
-    DTensor cannot shard (a sorted search, in-place scatters), which the
-    dry-run replicates and lists."""
-    from repro_torch import configs
+    """The small MoE LM through its three kinds on a fake (2, 4) mesh: its
+    routing (a sorted search, gathers and scatters per group) runs on each
+    rank's groups, so nothing is replicated."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models.transformer import TransformerConfig
 
-    mod = configs.get("olmoe_1b_7b")
-    mod.config = lambda: TransformerConfig(
-        name="tiny-moe", n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
-        d_ff=32, vocab=256, n_experts=8, top_k=2, q_chunk=16, kv_chunk=16)
-    mod.SHAPES = {"train_4k": {"kind": "train", "seq": 32, "batch": 8},
-                  "prefill_32k": {"kind": "prefill", "seq": 32, "batch": 4},
-                  "decode_32k": {"kind": "decode", "seq": 32, "batch": 8}}
+    mod = _tiny_moe()
     dryrun.fake_world(8)
     mesh = make_local_mesh(2, 4, device="cpu")
     out = {}
@@ -139,14 +174,18 @@ def _cli(out_dir):
     return {"rc": rc, "records": recs}
 
 
-def main(out_dir: str) -> None:
-    results = {"gcda_small_mesh": _gcda_small_mesh(os.path.join(out_dir, "a")),
-               "build": _build_one_per_family(),
-               "cli": _cli(os.path.join(out_dir, "b")),
-               "layers": _layer_extrapolation(),
-               "moe": _moe_cells()}
+def main(out_dir: str, group: str = "") -> None:
+    if group == "meshes":                # a child of its own: the slowest
+        results = {"meshes": _small_meshes()}
+    else:
+        results = {"gcda_small_mesh": _gcda_small_mesh(
+                       os.path.join(out_dir, "a")),
+                   "build": _build_one_per_family(),
+                   "cli": _cli(os.path.join(out_dir, "b")),
+                   "layers": _layer_extrapolation(),
+                   "moe": _moe_cells()}
     print("RESULTS " + json.dumps(results, default=str))
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(*sys.argv[1:])

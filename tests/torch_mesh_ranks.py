@@ -200,6 +200,95 @@ def _pins(inp):
             "cshard": ([str(p) for p in pinned.placements], _np(pinned))}
 
 
+SHARDED_MODELS = ("lm", "moe", "wide_deep", "gatedgcn", "pna")
+EQUIVARIANT_MODELS = ("mace", "equiformer_v2")
+
+
+def _sharded_step(name, inp):
+    """The dry-run's layouts run for real: model ``name``'s loss and
+    gradients with parameters and batch as DTensors laid out by the
+    sharding rules on a (2, 2, 2) pod mesh, and the same on plain tensors:
+    [(loss, gradient leaves)] of both, full tensors."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import params_from_arrays, recsys
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.gnn import build, common
+    from repro_torch.models.gnn import equiformer_v2, gatedgcn, mace, pna
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    mesh = make_local_mesh(2, 2, pod=2, device="cpu")
+    dp = shr.dp_axes(mesh)
+
+    def place(tree, specs):
+        return tree_map(lambda t, s: distribute_tensor(
+            t, mesh, shr.placements(s, mesh)), tree, specs,
+            is_leaf=shr.is_spec)
+
+    def both(loss, params, specs, batch, bspecs):
+        plain = value_and_grad(lambda q: loss(q, batch), params)
+        with implicit_replication():        # plain constants, as the dry-run
+            dist = value_and_grad(lambda q: loss(q, place(batch, bspecs)),
+                                  place(params, specs))
+        return [(_np(v), [_np(g) for g in tree_leaves(gs)])
+                for v, gs in (plain, dist)]
+
+    if name in ("lm", "moe"):
+        kw, params = ((inp["decode_cfg"], inp["decode_params"]) if name == "lm"
+                      else (dict(inp["moe_cfg"], moe_groups=4),
+                            inp["moe_params"]))
+        cfg = tfm.TransformerConfig(**kw, dtype=torch.float32,
+                                    attn_impl="dense")
+        toks = torch.from_numpy(inp["toks"]).long() % cfg.vocab
+        return both(lambda q, b: tfm.loss_fn(q, b, cfg)[0],
+                    params_from_arrays(params), shr.lm_param_specs(cfg, mesh),
+                    {"tokens": toks, "labels": torch.roll(toks, -1, 1)},
+                    {"tokens": shr.P(dp, None), "labels": shr.P(dp, None)})
+    if name == "wide_deep":
+        rcfg = configs.get("wide_deep").smoke_config()
+        p = params_from_arrays(inp["rs_params"])
+        rspecs = {"tables": shr.P(None, "model", None),
+                  "wide": shr.P("model"),
+                  "mlp": [{"w": shr.P(), "b": shr.P()} for _ in p["mlp"]],
+                  "head": shr.P(), "cand_proj": shr.P()}
+        batch = {"dense": torch.from_numpy(inp["rs_dense"]),
+                 "sparse": torch.from_numpy(inp["rs_sparse"]),
+                 "labels": torch.from_numpy(inp["rs_labels"])}
+        return both(lambda q, b: recsys.loss_fn(q, b, rcfg), p, rspecs, batch,
+                    {"dense": shr.P(dp, None), "sparse": shr.P(dp, None),
+                     "labels": shr.P(dp)})
+    # a GNN: edges over the data axes, nodes whole, as the GNN cells
+    m = {"gatedgcn": gatedgcn, "pna": pna, "mace": mace,
+         "equiformer_v2": equiformer_v2}[name]
+    gcfg = configs.get(name).smoke_config()
+    graph = {k: torch.from_numpy(v) for k, v in inp["graph"].items()}
+    feats, labels = ((("x",), "labels") if name in ("gatedgcn", "pna")
+                     else (("pos", "species", "graph_id"), "energy"))
+
+    def loss(q, b):
+        g = common.GraphBatch(src=b["src"], dst=b["dst"],
+                              edge_mask=b["edge_mask"],
+                              n_graphs=b["energy"].shape[0],
+                              **{f: b[f] for f in feats})
+        return m.loss_fn(q, g, b[labels], gcfg)
+
+    p = m.init_params(torch.Generator().manual_seed(0), gcfg)
+    # ill-conditioned in fp32 in both packages: PNA's std aggregator,
+    # EquiformerV2 at init
+    if name in ("pna", "equiformer_v2"):
+        p = tree_map(lambda t: t.double(), p)
+        graph = {k: v.double() if v.is_floating_point() else v
+                 for k, v in graph.items()}
+    return both(loss, p, build._param_specs(p, mesh), graph,
+                {k: shr.P(dp) if k in ("src", "dst", "edge_mask") else
+                 shr.P(*([None] * v.ndim)) for k, v in graph.items()})
+
+
 def mesh_checks(rank: int, world: int, inp: dict) -> dict:
     """Every mesh check of ``tests/test_torch_mesh.py`` in one launch; each
     rank returns its results by check name."""
@@ -209,3 +298,9 @@ def mesh_checks(rank: int, world: int, inp: dict) -> dict:
             "compressed_psum": _compressed_psum(rank, inp),
             "reshard": _reshard(inp), "pod": _pod(inp), "hlo": _hlo(inp),
             "pins": _pins(inp)}
+
+
+def sharded_steps(rank: int, world: int, inp: dict, models) -> dict:
+    """Each of ``models`` through :func:`_sharded_step`, in a launch of its
+    own."""
+    return {m: _sharded_step(m, inp) for m in models}
