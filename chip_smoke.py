@@ -2287,19 +2287,20 @@ def phase_gnn():
 DRYRUN_CELLS = ("gredo/gcda_regression", "gredo/gcda_similarity",
                 "gredo/gcda_multiply", "qwen2_1_5b/train_4k",
                 "qwen2_1_5b/prefill_32k", "qwen2_1_5b/decode_32k",
-                "olmoe_1b_7b/decode_32k", "wide_deep/serve_p99",
-                "gatedgcn/full_graph_sm")
+                "olmoe_1b_7b/train_4k", "olmoe_1b_7b/decode_32k",
+                "wide_deep/serve_p99", "gatedgcn/full_graph_sm")
 DRYRUN_TIMEOUT_S = 900
 # The JAX package's per-device (flops_per_device, collective bytes) ratios,
 # 2x16x16 over 16x16, of the LM and recommender cells above: from its
 # records of `JAX_PLATFORMS=cpu PYTHONPATH=src python -m repro.launch.dryrun
 # --arch ARCH --shape SHAPE --both-meshes` (jax 0.9.0, CPU). The port
 # cannot import the JAX package, so they are constants. Such a cell must
-# replicate no operation and keep its FLOPs ratio within DRYRUN_RATIO_BAND
-# of the reference's.
+# replicate no operation and keep its FLOPs and collective-bytes ratios
+# within DRYRUN_RATIO_BAND of the reference's.
 DRYRUN_REF_RATIOS = {"qwen2_1_5b/train_4k": (0.4999, 0.5179),
                      "qwen2_1_5b/prefill_32k": (0.5000, 0.5000),
                      "qwen2_1_5b/decode_32k": (0.5018, 0.5000),
+                     "olmoe_1b_7b/train_4k": (0.5001, 0.5130),
                      "olmoe_1b_7b/decode_32k": (0.5083, 0.5213),
                      "wide_deep/serve_p99": (0.5000, 0.5000)}
 DRYRUN_RATIO_BAND = 0.10
@@ -2652,8 +2653,8 @@ def mesh_gloo(out_dir: Path) -> None:
 def finish_dryruns(procs, out_dir: Path) -> None:
     """(d): wait for the dry-run children; every required cell must be ok
     on both meshes, an LM or recommender cell must replicate no operation,
-    and its per-device FLOPs must shrink from 16x16 to 2x16x16 as the
-    reference's do (DRYRUN_REF_RATIOS)."""
+    and its per-device FLOPs and collective bytes must shrink from 16x16
+    to 2x16x16 as the reference's do (DRYRUN_REF_RATIOS)."""
     failed, n_ok, recs = [], 0, {}
     for mesh, t0, log, proc in procs:
         try:
@@ -2684,7 +2685,8 @@ def finish_dryruns(procs, out_dir: Path) -> None:
                 f"{rec['memory']['argument_bytes'] / 1e9:.4f}, collective "
                 f"bytes {rec['collectives']['total_bytes']:.4e}, trace "
                 f"{rec['trace_s']} s, replicated ops "
-                f"{json.dumps(replicated, sort_keys=True)}")
+                f"{json.dumps(replicated, sort_keys=True)}, collectives by "
+                f"mesh dims {json.dumps(rec.get('collective_groups'))}")
             if cell in DRYRUN_REF_RATIOS and replicated:
                 failed.append(f"{cell}/{mesh}: replicated {replicated}")
     for cell, (ref_flops, ref_coll) in DRYRUN_REF_RATIOS.items():
@@ -2697,9 +2699,11 @@ def finish_dryruns(procs, out_dir: Path) -> None:
         say(f"(d) {cell}: 2x16x16 / 16x16 flops/device {flops:.4f} "
             f"(reference {ref_flops:.4f}), collective bytes {coll:.4f} "
             f"(reference {ref_coll:.4f})")
-        if abs(flops / ref_flops - 1) > DRYRUN_RATIO_BAND:
-            failed.append(f"{cell}: flops ratio {flops:.4f} against the "
-                          f"reference's {ref_flops:.4f}")
+        for what, got, ref in (("flops", flops, ref_flops),
+                               ("collective bytes", coll, ref_coll)):
+            if abs(got / ref - 1) > DRYRUN_RATIO_BAND:
+                failed.append(f"{cell}: {what} ratio {got:.4f} against "
+                              f"the reference's {ref:.4f}")
     say(f"(d) dry-run: {n_ok} ok, {len(failed)} failed")
     if failed:
         raise AssertionError("dry-run cells failed: " + "; ".join(failed))

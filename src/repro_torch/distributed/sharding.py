@@ -18,6 +18,7 @@ per tensor dim: a mesh axis name, a tuple of names (major to minor), or
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -292,6 +293,33 @@ class _Pin(torch.autograd.Function):
         return g.redistribute(g.device_mesh, ctx.pl), None
 
 
+class _Relayout(torch.autograd.Function):
+    """Redistribute to ``pl``; the gradient back to the input's layout, but
+    left a partial sum over the mesh dims where the input was replicated:
+    its reduction is :func:`reduce_partial`'s, one for all those dims (a
+    parameter's gradient over the data axes), where DTensor's own backward
+    would reduce it there, mesh dim by mesh dim. Over a dim where the input
+    was a partial sum the gradient is replicated, as DTensor's own."""
+
+    @staticmethod
+    def forward(ctx, t, pl):
+        ctx.pl = t.placements
+        return t.redistribute(t.device_mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+
+        pl = [q if p.is_replicate() and q.is_partial() else
+              Replicate() if p.is_partial() and not q.is_partial() else p
+              for p, q in zip(ctx.pl, g.placements)]
+        return g.redistribute(g.device_mesh, pl), None
+
+
+def _relayout(t, pl):
+    return t if tuple(pl) == tuple(t.placements) else _Relayout.apply(t, pl)
+
+
 def keep_split(t, dims):
     """``t`` with its splits of the tensor dims ``dims`` kept, every other
     dim replicated and partial sums reduced, and its gradient pinned to the
@@ -356,9 +384,8 @@ def on_shards(fn, args, roles, out_roles):
     for a, r in zip(args, roles):
         if isinstance(a, DTensor) or (isinstance(a, torch.Tensor) and
                                       any(k in r for k in kept if k)):
-            a = as_dtensor(a, mesh).redistribute(
-                mesh, layout(r, Replicate())).to_local(
-                    grad_placements=layout(r, Partial()))
+            a = _relayout(as_dtensor(a, mesh), layout(r, Replicate())
+                          ).to_local(grad_placements=layout(r, Partial()))
         local.append(a)
     out = fn(*local)
     many = isinstance(out, tuple)
@@ -367,6 +394,109 @@ def on_shards(fn, args, roles, out_roles):
                  for o, r in zip(out if many else (out,),
                                  out_roles if many else (out_roles,)))
     return outs if many else outs[0]
+
+
+def joined_group(mesh, dims):
+    """The process group over the mesh dims ``dims`` (indices) taken as one:
+    the dim's own group, the group of a flattened dim of ``mesh``'s root
+    (``launch.mesh`` flattens ('pod', 'data')), or one made once for these
+    dims on every rank (a collective call) and kept on the root mesh. Only
+    a flattened dim is one that DTensor's own redistributions merge
+    into."""
+    import torch.distributed as dist
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    names = [axis_names(mesh)[j] for j in sorted(dims)]
+    if len(names) == 1:
+        return mesh.get_group(names[0])
+    root = mesh._get_root_mesh()
+    name = "_".join(names)
+    if name in root._flatten_mapping:
+        return root._flatten_mapping[name].get_group()
+    made = root.__dict__.setdefault("_joined_groups", {})
+    if name not in made:
+        # outside any dispatch mode: making a group is no operation of a
+        # traced step
+        with _disable_current_modes():
+            order = [axis_names(root).index(n) for n in names]
+            ranks = root.mesh.movedim(order, list(range(-len(order), 0)))
+            size = math.prod(root.mesh.shape[j] for j in order)
+            made[name], _ = dist.new_subgroups_by_enumeration(
+                ranks.reshape(-1, size).tolist())
+    return made[name]
+
+
+def group_dims(mesh, group) -> str:
+    """The dims of ``mesh`` that process group ``group`` (a group or its
+    name) spans, joined by "_" (``pod_data``): read from its ranks'
+    coordinates on the mesh, so any group over those dims has the name,
+    whichever mesh object made it."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    if isinstance(group, str):
+        group = _resolve_process_group(group)
+    ranks = dist.get_process_group_ranks(group)
+    root = mesh._get_root_mesh()
+    with _disable_current_modes():      # the mesh's ranks, not a fake copy
+        layout = np.asarray(root.mesh.tolist())
+    coords = np.argwhere(np.isin(layout, ranks))
+    return "_".join(n for j, n in enumerate(axis_names(root))
+                    if len(set(coords[:, j])) > 1)
+
+
+class _ReducePartial(torch.autograd.Function):
+    """One all-reduce of a DTensor's partial sums over the joined group of
+    their mesh dims. The gradient of a partial sum is the result's, as
+    DTensor's own backward leaves it."""
+
+    @staticmethod
+    def forward(ctx, t):
+        from torch.distributed import _functional_collectives as funcol
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh, pl = t.device_mesh, t.placements
+        dims = [j for j, p in enumerate(pl) if p.is_partial()]
+        local = t.to_local()
+        ops = {pl[j].reduce_op for j in dims}
+        if ops <= {"sum", "avg"}:       # a mean is a sum of shares
+            for j in dims:
+                if pl[j].reduce_op == "avg":
+                    local = local / mesh.size(j)
+            ops = {"sum"}
+        if len(ops) != 1:
+            raise ValueError(f"mixed partial reductions in {pl}")
+        local = funcol.all_reduce(local.contiguous(), ops.pop(),
+                                  joined_group(mesh, dims))
+        return DTensor.from_local(
+            funcol.wait_tensor(local), mesh,
+            [Replicate() if j in dims else p for j, p in enumerate(pl)],
+            run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def reduce_partial(t, target=None):
+    """DTensor ``t`` with its partial sums reduced in ONE all-reduce over
+    the joined group of the mesh dims that hold them, as GSPMD reduces a
+    gradient over ('pod', 'data') at once (DTensor's own redistribution
+    reduces mesh dim by mesh dim where no flattened dim joins them), then
+    laid out as ``target`` (its placements; a split of a replicated dim is
+    a local slice). Differentiable; a plain tensor is returned as it
+    is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return t
+    if any(p.is_partial() for p in t.placements):
+        t = _ReducePartial.apply(t)
+    if target is not None and tuple(target) != tuple(t.placements):
+        t = t.redistribute(t.device_mesh, target)
+    return t
 
 
 class _Extremum(torch.autograd.Function):
@@ -463,7 +593,7 @@ def take_sharded(fn, t, dim: int, idx):
         else:
             lays.append((Replicate(),) * 4)
     tpl, ipl, gpl, opl = zip(*lays)
-    t = t.redistribute(mesh, tpl)
+    t = _relayout(t, tpl)
     tl = t.to_local(grad_placements=gpl)
     il = idx.redistribute(mesh, ipl).to_local()
     if Shard(dim) not in tpl:
@@ -552,20 +682,26 @@ def from_blocks(block, mesh, spec: P):
                               run_check=False)
 
 
+def _dims(mesh, axes) -> list:
+    return [axis_names(mesh).index(name) for name in _axes(axes)]
+
+
 def psum(t, mesh, axes):
-    """Sum of ``t`` over the ranks of ``axes`` (differentiable: the
-    gradient is summed back the same way)."""
-    for name in _axes(axes):
-        t = _all_reduce_sum(t, mesh.get_group(name))
-    return t
+    """Sum of ``t`` over the ranks of ``axes``, one all-reduce over them
+    joined (differentiable: the gradient is summed back the same way)."""
+    if not _axes(axes):
+        return t
+    return _all_reduce_sum(t, joined_group(mesh, _dims(mesh, axes)))
 
 
 def pmax(t, mesh, axes):
     import torch.distributed as dist
 
-    for name in _axes(axes):
-        t = t.clone()
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(name))
+    if not _axes(axes):
+        return t
+    t = t.clone()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX,
+                    group=joined_group(mesh, _dims(mesh, axes)))
     return t
 
 

@@ -253,7 +253,7 @@ def trace_cell(cell, mesh):
     with FakeTensorMode(allow_non_fake_inputs=True):
         args = tree_map(place, cell.args, cell.in_shardings,
                         is_leaf=is_tensor_spec)
-        rec = StepRecorder()
+        rec = StepRecorder(mesh)
         guard = ReplicateOnFailure(rec.record)
         with implicit_replication(), rec, guard:
             out = cell.fn(*args)
@@ -263,7 +263,7 @@ def trace_cell(cell, mesh):
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
              mesh_override=None, perf_variant: str = "") -> dict:
-    from .hlo_analysis import collective_bytes, hlo_cost
+    from .hlo_analysis import collective_bytes, collective_groups, hlo_cost
     from .mesh import make_production_mesh
     from .specs import build_cell
 
@@ -311,6 +311,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             "dot_flops_per_device": cost["flops"],
             "hbm_bytes_per_device": cost["bytes"],
             "collectives": coll,
+            "collective_groups": collective_groups(step),
             "replicated_ops": replicated,
             "top_ops": {"flops": step.top_ops("flops"),
                         "bytes": step.top_ops("bytes")},

@@ -21,7 +21,8 @@ package's names and keys and read such a record instead of HLO text.
     collectives (c10d and functional collectives), by the JAX package's
     kinds — all-gather, all-reduce, reduce-scatter, all-to-all,
     collective-permute — with the bytes of their results, all-reduce
-    doubled for the ring.
+    doubled for the ring; ``collective_groups`` splits them by the mesh
+    dims each one runs over (several joined by "_", e.g. ``pod_data``).
   * Loops: eager code runs every trip of a Python loop, so each trip is
     counted, the counterpart of the JAX package's trip-count walk of
     ``while`` bodies.
@@ -78,14 +79,16 @@ def _tally():
 @dataclasses.dataclass
 class StepRecord:
     """What one rank's local operations of a traced step do: totals, the
-    collectives by kind, and ``by_op`` (count, FLOPs and bytes by
-    operation name)."""
+    collectives by kind and by "kind over mesh dims" (``groups``), and
+    ``by_op`` (count, FLOPs and bytes by operation name)."""
     flops: float = 0.0
     bytes: float = 0.0
     ops: int = 0
     collectives: dict = dataclasses.field(
         default_factory=lambda: defaultdict(lambda: {"count": 0, "bytes": 0}))
     by_op: dict = dataclasses.field(default_factory=_tally)
+    groups: dict = dataclasses.field(
+        default_factory=lambda: defaultdict(lambda: {"count": 0, "bytes": 0}))
 
     def scaled_sum(self, other: "StepRecord", k: float) -> "StepRecord":
         """self + k * other, field by field."""
@@ -93,9 +96,11 @@ class StepRecord:
                          self.bytes + k * other.bytes,
                          int(self.ops + k * other.ops))
         for rec, f in ((self, 1), (other, k)):
-            for kind, v in rec.collectives.items():
-                out.collectives[kind]["count"] += int(f * v["count"])
-                out.collectives[kind]["bytes"] += int(f * v["bytes"])
+            for mine, theirs in ((out.collectives, rec.collectives),
+                                 (out.groups, rec.groups)):
+                for kind, v in theirs.items():
+                    mine[kind]["count"] += int(f * v["count"])
+                    mine[kind]["bytes"] += int(f * v["bytes"])
             for name, v in rec.by_op.items():
                 for key in v:
                     out.by_op[name][key] += f * v[key]
@@ -106,7 +111,8 @@ class StepRecord:
         that do not differ by whole layers)."""
         return (self.flops < 0 or self.bytes < 0 or self.ops < 0
                 or any(v["count"] < 0 or v["bytes"] < 0
-                       for v in self.collectives.values()))
+                       for d in (self.collectives, self.groups)
+                       for v in d.values()))
 
     def top_ops(self, key: str = "flops", n: int = 8) -> list:
         """The ``n`` operations with the most ``key``: [name, count,
@@ -118,16 +124,17 @@ class StepRecord:
     def snapshot(self):
         return (self.flops, self.bytes, self.ops,
                 {k: dict(v) for k, v in self.collectives.items()},
-                {k: dict(v) for k, v in self.by_op.items()})
+                {k: dict(v) for k, v in self.by_op.items()},
+                {k: dict(v) for k, v in self.groups.items()})
 
     def restore(self, snap) -> None:
         """Back to ``snapshot()``'s state: the operations of an attempt
         that was discarded are not the step's."""
-        self.flops, self.bytes, self.ops, coll, by_op = snap
-        self.collectives.clear()
-        self.collectives.update(coll)
-        self.by_op.clear()
-        self.by_op.update(by_op)
+        self.flops, self.bytes, self.ops, coll, by_op, groups = snap
+        for mine, saved in ((self.collectives, coll), (self.by_op, by_op),
+                            (self.groups, groups)):
+            mine.clear()
+            mine.update(saved)
 
 
 def _nbytes(t) -> int:
@@ -135,10 +142,14 @@ def _nbytes(t) -> int:
 
 
 class StepRecorder(TorchDispatchMode):
-    """Records every local operation run under it into ``self.record``."""
+    """Records every local operation run under it into ``self.record``;
+    the collectives' groups are named by the dims of ``mesh`` (a
+    DeviceMesh) where it is given."""
 
-    def __init__(self):
+    def __init__(self, mesh=None):
         super().__init__()
+        self.mesh = mesh
+        self._labels: dict = {}     # group name -> mesh dims
         from torch.utils.flop_counter import FlopCounterMode
         self.record = StepRecord()
         self._flop = dict(FlopCounterMode(display=False).flop_registry)
@@ -174,6 +185,28 @@ class StepRecorder(TorchDispatchMode):
         ShardingPropagator._propagate_tensor_meta_non_cached = self._orig
         return super().__exit__(*exc)
 
+    def _group(self, args) -> str:
+        """The mesh dims a collective's group spans: a functional
+        collective names its group last, a c10d one passes it boxed."""
+        import torch.distributed as dist
+        from ..distributed.sharding import group_dims
+        group = None
+        for a in args:
+            if isinstance(a, str):
+                group = a
+            elif isinstance(a, torch.ScriptObject):
+                try:
+                    group = dist.ProcessGroup.unbox(a)
+                except RuntimeError:   # a reduce op, not a group
+                    continue
+        if group is None:
+            return "an unnamed group"
+        key = group if isinstance(group, str) else group.group_name
+        if key not in self._labels:
+            self._labels[key] = (group_dims(self.mesh, group)
+                                 if self.mesh is not None else key)
+        return self._labels[key]
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
         kwargs = kwargs or {}
@@ -191,9 +224,11 @@ class StepRecorder(TorchDispatchMode):
                 _nbytes(tree_leaves(args)[0])
             if name in ("_allgather_base_", "_reduce_scatter_base_"):
                 size = _nbytes(args[0])     # the output buffer is arg 0
-            rec.collectives[kind]["count"] += 1
-            rec.collectives[kind]["bytes"] += size * (
-                2 if kind == "all-reduce" else 1)
+            size *= 2 if kind == "all-reduce" else 1
+            for d, key in ((rec.collectives, kind),
+                           (rec.groups, f"{kind} over {self._group(args)}")):
+                d[key]["count"] += 1
+                d[key]["bytes"] += size
             return out
         rec.ops += 1
         flops = nbytes = 0
@@ -218,6 +253,11 @@ def trace(fn, *args, **kwargs):
     with StepRecorder() as r:
         out = fn(*args, **kwargs)
     return out, r.record
+
+
+def collective_groups(record: StepRecord) -> dict:
+    """{"<kind> over <mesh dims>": {count, bytes}}, sorted."""
+    return {k: dict(record.groups[k]) for k in sorted(record.groups)}
 
 
 def collective_bytes(record: StepRecord) -> dict:

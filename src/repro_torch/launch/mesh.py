@@ -19,7 +19,15 @@ def _mesh(device: str, shape: tuple, names: tuple):
         have = dist.get_world_size() if dist.is_initialized() else None
         raise RuntimeError(f"a {shape} mesh needs a process group of {world} "
                            f"ranks; the current world is {have}")
-    return init_device_mesh(device, shape, mesh_dim_names=names)
+    mesh = init_device_mesh(device, shape, mesh_dim_names=names)
+    if "pod" in names:
+        # the data axes flattened into a dim of their own, made here on
+        # every rank: a reduction over ('pod', 'data') is one collective
+        # (``sharding.joined_group``), and DTensor's own redistributions
+        # merge into it. Only this dim: DTensor's merges into a flattened
+        # dim with 'model' in it gave wrong values (torch 2.13, gloo)
+        mesh["pod", "data"]._flatten("pod_data")
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):

@@ -124,34 +124,56 @@ def _so2_conv(feat_edge, so2_w, radial, msets, order, C):
     """feat_edge: (E, dim, C) in edge frame. Per-|m| dense mixing over
     (l-stack x channels); radial (E, C) modulates channels. ``msets`` and
     ``order`` from ``_m_index_tensors``: rows above m_max stay zero. The
-    mixing is independent per edge, so on DTensors each rank convolves its
-    edges with the whole weights (``sharding.on_shards``)."""
+    mixing is independent per edge and per output column, so on DTensors
+    (``sharding.on_shards``) each rank mixes its edges into its block of
+    the weights' columns, as the reference splits the weights' last dim
+    over 'model'; the blocks are gathered over 'model' before the
+    (l, channel) reshape, which a column split cannot follow, and the
+    radial gate and placement run on each rank's edges."""
     ws = [w[k] for w in so2_w for k in ("wr", "wi")]
 
-    def conv(f, r, *ws):
-        return _so2_terms(f, [{"wr": a, "wi": b}
-                              for a, b in zip(ws[::2], ws[1::2])],
-                          r, msets, order, C)
+    def mix(f, *ws):
+        return _so2_mix(f, ws, msets, C)
 
-    return on_shards(conv, (feat_edge, radial, *ws),
-                     (("edge", None, None), ("edge", None))
-                     + ((None, None),) * len(ws), ("edge", None, None))
+    n_out = sum(1 if rows_s is None else 2 for _, rows_s in msets)
+    cols = on_shards(mix, (keep_split(feat_edge, (0,)), *ws),
+                     (("edge", None, None),) + ((None, "col"),) * len(ws),
+                     (("edge", "col"),) * n_out)
+    cols = tuple(keep_split(o, (0,)) for o in cols)
+
+    def place(r, *cols):
+        return _so2_place(cols, r, msets, order, C, feat_edge.shape[1])
+
+    return on_shards(place, (radial, *cols),
+                     (("edge", None),) + (("edge", None),) * n_out,
+                     ("edge", None, None))
 
 
-def _so2_terms(feat_edge, so2_w, radial, msets, order, C):
+def _so2_mix(feat_edge, ws, msets, C):
+    """The per-|m| products: (E, nl * C) each, m = 0's one and a (cos, sin)
+    pair for each m > 0, in ``msets``' order; ``ws`` the (wr, wi) of each
+    |m| in turn (wi None for m = 0)."""
     outs = []
-    for (rows_c, rows_s), w in zip(msets, so2_w):
+    for (rows_c, rows_s), wr, wi in zip(msets, ws[::2], ws[1::2]):
         nl = rows_c.numel()
         fc = feat_edge.index_select(1, rows_c).reshape(-1, nl * C)
         if rows_s is None:
-            outs.append((fc @ w["wr"]).reshape(-1, nl, C) * radial[:, None, :])
+            outs.append(fc @ wr)
         else:
             fs = feat_edge.index_select(1, rows_s).reshape(-1, nl * C)
-            oc = fc @ w["wr"] - fs @ w["wi"]
-            os_ = fc @ w["wi"] + fs @ w["wr"]
-            outs.append(oc.reshape(-1, nl, C) * radial[:, None, :])
-            outs.append(os_.reshape(-1, nl, C) * radial[:, None, :])
-    return torch.zeros_like(feat_edge).index_copy(1, order, torch.cat(outs, 1))
+            outs.append(fc @ wr - fs @ wi)
+            outs.append(fc @ wi + fs @ wr)
+    return tuple(outs)
+
+
+def _so2_place(cols, radial, msets, order, C, dim):
+    """The products of :func:`_so2_mix` gated by ``radial`` and placed at
+    their rows of a (E, dim, C) block, the rows above m_max zero."""
+    nls = [rows_c.numel() for rows_c, rows_s in msets
+           for _ in range(1 if rows_s is None else 2)]
+    blk = torch.cat([o.reshape(-1, nl, C) * radial[:, None, :]
+                     for o, nl in zip(cols, nls)], 1)
+    return blk.new_zeros((blk.shape[0], dim, C)).index_copy(1, order, blk)
 
 
 def _cshard(cfg: EquiformerV2Config, x):
@@ -207,13 +229,14 @@ def forward(params, g: GraphBatch, cfg: EquiformerV2Config):
         # heads gate channel groups
         # the gate pinned to its edge split (its gradient's view into the
         # heads' channel groups cannot follow a channel split); the value
-        # product on each rank's edges (its gradient's views cannot follow
-        # DTensor's layout of the saved message)
+        # product on each rank's edges and block of the weight's columns,
+        # as the reference splits them over 'model' (its gradient's views
+        # cannot follow DTensor's layout of the saved message)
         att_c = keep_batch(torch.repeat_interleave(att, C // H, dim=-1))
         val = on_shards(lambda m, w: torch.einsum("eic,cd->eid", m, w),
-                        (msg, lp["w_val"]), (("edge", None, None),
-                                             (None, None)),
-                        ("edge", None, None))
+                        (keep_split(msg, (0,)), lp["w_val"]),
+                        (("edge", None, None), (None, "col")),
+                        ("edge", None, "col"))
         # nodes whole, channels as split, as the reference's specs lay out
         # the node features
         h = keep_split(h + _cshard(cfg, scatter_sum(val * att_c[:, None, :],

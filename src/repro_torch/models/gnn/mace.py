@@ -165,9 +165,15 @@ def forward(params, g: GraphBatch, cfg: MACEConfig):
         for pi, (l1, l2, l3) in enumerate(paths):
             Ct = so3.real_cg_tensor(l1, l2, l3, dev, h.dtype)
             s1, s2 = l1 * l1, l2 * l2
-            msg = torch.einsum("ei,ejc,ijk->ekc",
-                               Y[:, s1:s1 + 2 * l1 + 1],
-                               h_src[:, s2:s2 + 2 * l2 + 1, :], Ct)
+            # per edge and channel, so on DTensors on each rank's edges and
+            # channels: DTensor's own einsum views a dim split over two
+            # mesh dims, which torch 2.11 cannot
+            msg = on_shards(
+                lambda y, hs, Ct=Ct: torch.einsum("ei,ejc,ijk->ekc", y, hs,
+                                                  Ct),
+                (Y[:, s1:s1 + 2 * l1 + 1], h_src[:, s2:s2 + 2 * l2 + 1, :]),
+                (("edge", None), ("edge", None, "channel")),
+                ("edge", None, "channel"))
             msg = msg * radial[:, pi, None, :]
             contribs.setdefault(l3, []).append(scatter_sum(msg, g.dst, N))
         # nodes whole, channels split, as the reference's specs lay them out

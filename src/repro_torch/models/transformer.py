@@ -53,7 +53,8 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.sharding import (as_dtensor, block_index, keep_batch,
-                                    keep_split, on_shards, take_sharded)
+                                    keep_split, on_shards, reduce_partial,
+                                    take_sharded)
 from ..kernels.flash_attention.ops import flash_attention
 from . import params_from_arrays  # noqa: F401  (re-exported)
 
@@ -451,7 +452,9 @@ def _moe_block_shards(x, router_w, w_in, w_gate, w_out,
         (("group", None, None), (None, None), w, w,
          ("expert", "hidden", None)),
         (("group", None, None), (None,), (None,)))
-    return out, E * ((me / n) * (ce / n)).sum()
+    # each mean reduced at once over every mesh dim that holds its shares
+    return out, E * ((reduce_partial(me) / n)
+                     * (reduce_partial(ce) / n)).sum()
 
 
 def _moe_experts(x, r: Route, w_in, w_gate, w_out, cfg: TransformerConfig,

@@ -19,6 +19,7 @@ import torch
 
 from ..checkpoint import CheckpointManager
 from ..distributed.fault import FailureInjector, StepWatchdog
+from ..distributed.sharding import reduce_partial
 from .optimizer import (AdamWConfig, adamw_init, adamw_update, tree_leaves,
                         tree_map)
 
@@ -42,13 +43,17 @@ def value_and_grad(loss_fn: Callable, params: Tree, *args,
     the loss (detached; with ``has_aux``, ``(loss, aux)`` from a
     ``loss_fn`` returning both) and the gradient tree of ``params``
     (``torch.autograd.grad``; a parameter the loss does not reach gets
-    zeros, as in JAX)."""
+    zeros, as in JAX). A DTensor parameter's gradient comes back in the
+    parameter's layout, as JAX gives it: its partial sums (over the data
+    axes, say) reduced in one all-reduce over those mesh dims joined
+    (``sharding.reduce_partial``)."""
     tracked = tree_map(lambda p: p.detach().requires_grad_(True), params)
     leaves = tree_leaves(tracked)
     out = loss_fn(tracked, *args)
     loss = out[0] if has_aux else out
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    it = iter([torch.zeros_like(p) if g is None else g
+    it = iter([torch.zeros_like(p) if g is None else
+               reduce_partial(g, getattr(p, "placements", None))
                for p, g in zip(leaves, grads)])
     grads = tree_map(lambda _: next(it), tracked)
     if has_aux:

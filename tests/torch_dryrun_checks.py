@@ -1,8 +1,9 @@
 """Dry-run checks of ``tests/test_torch_dryrun.py``, run in a child
 process (the ``fake`` process group must not live in a test worker):
-``python tests/torch_dryrun_checks.py OUT_DIR [meshes]`` prints one JSON
-object of results. Imports the port alone (and the small configs'
-arguments from ``torch_dryrun_ref_checks``, which import nothing)."""
+``python tests/torch_dryrun_checks.py OUT_DIR [meshes | equiformer]``
+prints one JSON object of results. Imports the port alone (and the small
+configs' arguments from ``torch_dryrun_ref_checks``, which import
+nothing)."""
 from __future__ import annotations
 
 import json
@@ -54,34 +55,54 @@ def _tiny_moe():
     return mod
 
 
-def _small_meshes():
-    """The small LM and MoE through train, prefill and decode, and a small
-    Wide & Deep serve cell, on fake (2, 4) and (2, 2, 4) meshes (the
-    production meshes' shapes: one and two pods)."""
+# two data ranks and one of 'model': the same edges per device as on
+# (2, 4), with every product whole over the single 'model' rank
+EXTRA_MESHES = {"2x1": (2, 1, 0)}
+
+
+def _small_meshes(archs, meshes):
+    """Small cells of ``archs`` on fake meshes (``meshes``: names of
+    ``MESHES`` or ``EXTRA_MESHES``): the small LM and MoE through train,
+    prefill and decode, the smoke Wide & Deep through its train, serve and
+    retrieval shapes, the smoke EquiformerV2 on a few molecules; (2, 4) and
+    (2, 2, 4) are the production meshes' shapes, one and two pods. The
+    MoE's train step runs also with ``REPRO_MOE_EP=1``."""
     from repro_torch import configs
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_local_mesh
-    from torch_dryrun_ref_checks import MESHES
+    from torch_dryrun_ref_checks import MESHES, SMALL
 
     _tiny_lm(2)
     _tiny_moe()
-    wd = configs.get("wide_deep")
-    wd.config = wd.smoke_config
-    wd.SHAPES = {"serve_p99": {"kind": "serve", "batch": 64}}
-    cells = [(a, s) for a in ("qwen2_1_5b", "olmoe_1b_7b")
-             for s in ("train_4k", "prefill_32k", "decode_32k")]
-    cells.append(("wide_deep", "serve_p99"))
+    for arch in ("wide_deep", "equiformer_v2"):
+        mod = configs.get(arch)
+        mod.config = mod.smoke_config
+        mod.SHAPES = SMALL[arch][1]
+    cells = [(a, s, "") for a in archs for s in SMALL[a][1]]
+    if "olmoe_1b_7b" in archs:
+        cells.append(("olmoe_1b_7b", "train_4k", "ep"))
     out = {}
-    for name, (data, model, pod) in MESHES.items():
+    for name in meshes:
+        data, model, pod = {**MESHES, **EXTRA_MESHES}[name]
         dryrun.fake_world(data * model * max(pod, 1))
         mesh = make_local_mesh(data, model, pod, device="cpu")
-        for arch, shape in cells:
-            rec = dryrun.run_cell(arch, shape, False, "", mesh_override=mesh)
-            out[f"{arch}/{shape}/{name}"] = {
+        for arch, shape, variant in cells:
+            if variant:
+                os.environ["REPRO_MOE_EP"] = "1"
+            try:
+                rec = dryrun.run_cell(arch, shape, False, "",
+                                      mesh_override=mesh)
+            finally:
+                os.environ.pop("REPRO_MOE_EP", None)
+            out[f"{arch}/{shape}/{name}" + (f"/{variant}" if variant
+                                            else "")] = {
                 "ok": rec["ok"], "error": rec.get("error"),
                 "replicated_ops": rec.get("replicated_ops"),
                 "dot_flops": rec.get("dot_flops_per_device"),
+                "flops_by_op": {k: f for k, _, f, _ in
+                                (rec.get("top_ops") or {}).get("flops", [])},
                 "collectives": rec.get("collectives"),
+                "collective_groups": rec.get("collective_groups"),
                 "trace_s": rec.get("trace_s")}
     return out
 
@@ -175,8 +196,12 @@ def _cli(out_dir):
 
 
 def main(out_dir: str, group: str = "") -> None:
-    if group == "meshes":                # a child of its own: the slowest
-        results = {"meshes": _small_meshes()}
+    if group == "meshes":                # children of their own: the
+        results = {"meshes": _small_meshes(   # slowest
+            ("qwen2_1_5b", "olmoe_1b_7b", "wide_deep"), ("2x4", "2x2x4"))}
+    elif group == "equiformer":
+        results = {"meshes": _small_meshes(
+            ("equiformer_v2",), ("2x4", "2x2x4", "2x1"))}
     else:
         results = {"gcda_small_mesh": _gcda_small_mesh(
                        os.path.join(out_dir, "a")),
