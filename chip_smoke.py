@@ -2288,22 +2288,51 @@ DRYRUN_CELLS = ("gredo/gcda_regression", "gredo/gcda_similarity",
                 "gredo/gcda_multiply", "qwen2_1_5b/train_4k",
                 "qwen2_1_5b/prefill_32k", "qwen2_1_5b/decode_32k",
                 "olmoe_1b_7b/train_4k", "olmoe_1b_7b/decode_32k",
-                "wide_deep/serve_p99", "gatedgcn/full_graph_sm")
+                "wide_deep/serve_p99", "gatedgcn/full_graph_sm",
+                "pna/full_graph_sm", "mace/molecule",
+                "equiformer_v2/molecule")
+DRYRUN_GNN_CELLS = DRYRUN_CELLS[-4:]
 DRYRUN_TIMEOUT_S = 900
-# The JAX package's per-device (flops_per_device, collective bytes) ratios,
-# 2x16x16 over 16x16, of the LM and recommender cells above: from its
-# records of `JAX_PLATFORMS=cpu PYTHONPATH=src python -m repro.launch.dryrun
-# --arch ARCH --shape SHAPE --both-meshes` (jax 0.9.0, CPU). The port
-# cannot import the JAX package, so they are constants. Such a cell must
-# replicate no operation and keep its FLOPs and collective-bytes ratios
-# within DRYRUN_RATIO_BAND of the reference's.
+# The JAX package's per-device (FLOPs, collective bytes) ratios, 2x16x16
+# over 16x16, of the LM, recommender and GNN cells above: from its records
+# of `JAX_PLATFORMS=cpu PYTHONPATH=src python -m repro.launch.dryrun --arch
+# ARCH --shape SHAPE --both-meshes` (jax 0.9.0, CPU). The port cannot
+# import the JAX package, so they are constants. The LM and recommender
+# FLOPs are XLA's `flops_per_device`; a GNN's are its matrix products
+# alone (`dot_flops_per_device`), since XLA's count of a GNN step also
+# holds its elementwise work (MACE's whole count is twice its products)
+# and the port counts products only. GatedGCN's FLOPs are not held (None):
+# the reference's product count skips its layer scan. Such a cell must
+# replicate no operation and keep its ratios within DRYRUN_RATIO_BAND of
+# the reference's.
 DRYRUN_REF_RATIOS = {"qwen2_1_5b/train_4k": (0.4999, 0.5179),
                      "qwen2_1_5b/prefill_32k": (0.5000, 0.5000),
                      "qwen2_1_5b/decode_32k": (0.5018, 0.5000),
                      "olmoe_1b_7b/train_4k": (0.5001, 0.5130),
                      "olmoe_1b_7b/decode_32k": (0.5083, 0.5213),
-                     "wide_deep/serve_p99": (0.5000, 0.5000)}
+                     "wide_deep/serve_p99": (0.5000, 0.5000),
+                     "gatedgcn/full_graph_sm": (None, 1.0000),
+                     "pna/full_graph_sm": (0.9780, 1.0000),
+                     "mace/molecule": (0.9246, 0.9222),
+                     "equiformer_v2/molecule": (0.5203, 0.7473)}
 DRYRUN_RATIO_BAND = 0.10
+# Per-device matrix-product FLOPs at 16x16 a cell may not exceed: MACE's
+# the reference's whole XLA count (9.5714e8, elementwise work included;
+# its products alone 4.7551e8), EquiformerV2's 1.10 times the reference's
+# products (1.5098e10), from the same records.
+DRYRUN_FLOPS_BOUNDS = {"mace/molecule": 9.6e8,
+                       "equiformer_v2/molecule": 1.66e10}
+# The reference's collective bytes per device at 16x16 of the GNN cells,
+# from the same records. A GNN cell's bytes may exceed them by at most
+# DRYRUN_RATIO_BAND, and its collective ratio may exceed the reference's
+# by at most DRYRUN_RATIO_BAND but fall below it by any amount: the port
+# moves less per device than the reference on both meshes, and its MACE
+# and EquiformerV2 run their node-wise work on each data rank's nodes on
+# both, where GSPMD splits it so on two pods only.
+DRYRUN_REF_GNN_BYTES = {"gatedgcn/full_graph_sm": 1.2195e8,
+                        "pna/full_graph_sm": 5.2733e7,
+                        "mace/molecule": 7.5993e7,
+                        "equiformer_v2/molecule": 2.0757e9}
 # One rank's block of the production 16x16 mesh (launch.specs placements)
 MESH_BLOCKS = {"gcda_regression": (262_144, 512),       # X over data
                "gcda_similarity": (16_384, 256),        # X over data, Y model
@@ -2652,9 +2681,12 @@ def mesh_gloo(out_dir: Path) -> None:
 
 def finish_dryruns(procs, out_dir: Path) -> None:
     """(d): wait for the dry-run children; every required cell must be ok
-    on both meshes, an LM or recommender cell must replicate no operation,
-    and its per-device FLOPs and collective bytes must shrink from 16x16
-    to 2x16x16 as the reference's do (DRYRUN_REF_RATIOS)."""
+    on both meshes, an LM, recommender or GNN cell must replicate no
+    operation, its per-device FLOPs and collective bytes must shrink from
+    16x16 to 2x16x16 as the reference's do (DRYRUN_REF_RATIOS; a GNN's
+    collective bytes may shrink more, within DRYRUN_REF_GNN_BYTES), and
+    MACE's and EquiformerV2's FLOPs per device at 16x16 keep within
+    DRYRUN_FLOPS_BOUNDS."""
     failed, n_ok, recs = [], 0, {}
     for mesh, t0, log, proc in procs:
         try:
@@ -2696,14 +2728,39 @@ def finish_dryruns(procs, out_dir: Path) -> None:
         flops = two["flops_per_device"] / one["flops_per_device"]
         coll = (two["collectives"]["total_bytes"]
                 / max(one["collectives"]["total_bytes"], 1))
+        held = "not held" if ref_flops is None else f"{ref_flops:.4f}"
         say(f"(d) {cell}: 2x16x16 / 16x16 flops/device {flops:.4f} "
-            f"(reference {ref_flops:.4f}), collective bytes {coll:.4f} "
+            f"(reference {held}), collective bytes {coll:.4f} "
             f"(reference {ref_coll:.4f})")
         for what, got, ref in (("flops", flops, ref_flops),
                                ("collective bytes", coll, ref_coll)):
-            if abs(got / ref - 1) > DRYRUN_RATIO_BAND:
+            off = got / ref - 1 if ref is not None else 0.0
+            if what != "flops" and cell in DRYRUN_REF_GNN_BYTES:
+                off = max(off, 0.0)
+            if abs(off) > DRYRUN_RATIO_BAND:
                 failed.append(f"{cell}: {what} ratio {got:.4f} against "
                               f"the reference's {ref:.4f}")
+    for cell, ref in DRYRUN_REF_GNN_BYTES.items():
+        if (cell, "16x16") in recs:
+            got = recs[cell, "16x16"]["collectives"]["total_bytes"]
+            say(f"(d) {cell}/16x16: collective bytes/device {got:.4e} "
+                f"(reference {ref:.4e})")
+            if got > (1 + DRYRUN_RATIO_BAND) * ref:
+                failed.append(f"{cell}/16x16: collective bytes/device "
+                              f"{got:.4e} above the reference's {ref:.4e}")
+    for cell, bound in DRYRUN_FLOPS_BOUNDS.items():
+        if (cell, "16x16") in recs:
+            got = recs[cell, "16x16"]["dot_flops_per_device"]
+            say(f"(d) {cell}/16x16: dot flops/device {got:.4e} "
+                f"(bound {bound:.4e})")
+            if got > bound:
+                failed.append(f"{cell}/16x16: dot flops/device {got:.4e} "
+                              f"above {bound:.4e}")
+    for mesh in ("16x16", "2x16x16"):
+        gnn = [recs[c, mesh]["trace_s"] for c in DRYRUN_GNN_CELLS
+               if (c, mesh) in recs]
+        say(f"(d) the GNN cells' traces on {mesh}: {sum(gnn):.1f} s "
+            f"({len(gnn)} cells)")
     say(f"(d) dry-run: {n_ok} ok, {len(failed)} failed")
     if failed:
         raise AssertionError("dry-run cells failed: " + "; ".join(failed))

@@ -337,6 +337,49 @@ def keep_split(t, dims):
     return _Pin.apply(t, pl)
 
 
+def whole(t, dims=()):
+    """``t`` replicated over every mesh dim but those that split its
+    tensor dims ``dims`` (its other splits gathered, partial sums
+    reduced), its gradient sent back to ``t``'s layout (a reduce-scatter
+    where ``t`` was split, where :func:`keep_split`'s gradient stays in
+    the new layout and is all-reduced): the input of products that each
+    need all of ``t``'s features."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    dims = {d % t.ndim for d in dims}
+    return _relayout(t, tuple(
+        p if isinstance(p, Shard) and p.dim in dims else Replicate()
+        for p in t.placements))
+
+
+def split_over(t, dim: int, axes):
+    """``t`` with tensor dim ``dim`` split over the mesh dims ``axes`` (a
+    name, or names major to minor; names the mesh lacks are skipped): each
+    rank's block where ``t`` was replicated there, its other splits kept
+    and partial sums reduced: a ``with_sharding_constraint`` that adds a
+    split. Its gradient goes back to ``t``'s layout (gathered over
+    ``axes``), so a region split so ends where it began and DTensor never
+    sums ``t``'s gradients in two layouts. Where the mesh dims do not
+    divide ``dim``, ``t`` is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    dim %= t.ndim
+    names = axis_names(t.device_mesh)
+    js = [names.index(a) for a in ((axes,) if isinstance(axes, str)
+                                   else axes) if a in names]
+    if not js or t.shape[dim] % math.prod(t.device_mesh.size(j)
+                                          for j in js):
+        return t
+    pl = [Shard(dim) if j in js else
+          p if isinstance(p, Shard) and p.dim != dim else Replicate()
+          for j, p in enumerate(t.placements)]
+    return _relayout(t, tuple(pl))
+
+
 def keep_batch(t):
     """:func:`keep_split` of the batch (dim 0): the layout GSPMD gives the
     activations of a data- and tensor-parallel step."""

@@ -46,7 +46,8 @@ Differences from the JAX package's dry-run, which compiles with XLA:
     depth: DTensor lays out the optimizer's update of the layer stacks by
     their size, so its cost is not linear in L.
   * ``top_ops`` lists the operations with the most FLOPs and with the
-    most bytes, per device.
+    most bytes, per device, and (``products``) the products with the most
+    FLOPs by their operands' local shapes.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b \\
@@ -314,7 +315,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             "collective_groups": collective_groups(step),
             "replicated_ops": replicated,
             "top_ops": {"flops": step.top_ops("flops"),
-                        "bytes": step.top_ops("bytes")},
+                        "bytes": step.top_ops("bytes"),
+                        "products": step.top_ops("flops", 100,
+                                                 "by_product")},
             "memory": {
                 "argument_bytes": arg_bytes,
                 "output_bytes": out_bytes,

@@ -26,6 +26,9 @@ package's names and keys and read such a record instead of HLO text.
   * Loops: eager code runs every trip of a Python loop, so each trip is
     counted, the counterpart of the JAX package's trip-count walk of
     ``while`` bodies.
+  * Products: ``by_product`` tallies each operation that has FLOPs by its
+    name and its tensor operands' local shapes (``mm (512,24)x(24,3)``),
+    so a product whole over a mesh dim can be told from a split one.
 """
 from __future__ import annotations
 
@@ -79,8 +82,10 @@ def _tally():
 @dataclasses.dataclass
 class StepRecord:
     """What one rank's local operations of a traced step do: totals, the
-    collectives by kind and by "kind over mesh dims" (``groups``), and
-    ``by_op`` (count, FLOPs and bytes by operation name)."""
+    collectives by kind and by "kind over mesh dims" (``groups``),
+    ``by_op`` (count, FLOPs and bytes by operation name) and
+    ``by_product`` (the same, of the operations with FLOPs, by name and
+    operand shapes)."""
     flops: float = 0.0
     bytes: float = 0.0
     ops: int = 0
@@ -89,6 +94,7 @@ class StepRecord:
     by_op: dict = dataclasses.field(default_factory=_tally)
     groups: dict = dataclasses.field(
         default_factory=lambda: defaultdict(lambda: {"count": 0, "bytes": 0}))
+    by_product: dict = dataclasses.field(default_factory=_tally)
 
     def scaled_sum(self, other: "StepRecord", k: float) -> "StepRecord":
         """self + k * other, field by field."""
@@ -101,9 +107,11 @@ class StepRecord:
                 for kind, v in theirs.items():
                     mine[kind]["count"] += int(f * v["count"])
                     mine[kind]["bytes"] += int(f * v["bytes"])
-            for name, v in rec.by_op.items():
-                for key in v:
-                    out.by_op[name][key] += f * v[key]
+            for mine, theirs in ((out.by_op, rec.by_op),
+                                 (out.by_product, rec.by_product)):
+                for name, v in theirs.items():
+                    for key in v:
+                        mine[name][key] += f * v[key]
         return out
 
     def negative(self) -> bool:
@@ -114,10 +122,12 @@ class StepRecord:
                        for d in (self.collectives, self.groups)
                        for v in d.values()))
 
-    def top_ops(self, key: str = "flops", n: int = 8) -> list:
-        """The ``n`` operations with the most ``key``: [name, count,
-        flops, bytes] each."""
-        items = sorted(self.by_op.items(), key=lambda kv: -kv[1][key])[:n]
+    def top_ops(self, key: str = "flops", n: int = 8,
+                by: str = "by_op") -> list:
+        """The ``n`` operations (of ``by``: ``by_op`` or ``by_product``)
+        with the most ``key``: [name, count, flops, bytes] each."""
+        items = sorted(getattr(self, by).items(),
+                       key=lambda kv: -kv[1][key])[:n]
         return [[k, int(v["count"]), v["flops"], v["bytes"]]
                 for k, v in items if v[key] > 0]
 
@@ -125,16 +135,24 @@ class StepRecord:
         return (self.flops, self.bytes, self.ops,
                 {k: dict(v) for k, v in self.collectives.items()},
                 {k: dict(v) for k, v in self.by_op.items()},
-                {k: dict(v) for k, v in self.groups.items()})
+                {k: dict(v) for k, v in self.groups.items()},
+                {k: dict(v) for k, v in self.by_product.items()})
 
     def restore(self, snap) -> None:
         """Back to ``snapshot()``'s state: the operations of an attempt
         that was discarded are not the step's."""
-        self.flops, self.bytes, self.ops, coll, by_op, groups = snap
+        self.flops, self.bytes, self.ops, coll, by_op, groups, prods = snap
         for mine, saved in ((self.collectives, coll), (self.by_op, by_op),
-                            (self.groups, groups)):
+                            (self.groups, groups), (self.by_product, prods)):
             mine.clear()
             mine.update(saved)
+
+
+def _signature(name: str, args) -> str:
+    """``name`` and its tensor operands' shapes: ``mm (512,24)x(24,3)``."""
+    shapes = ["(" + ",".join(str(d) for d in a.shape) + ")" for a in args
+              if isinstance(a, torch.Tensor)]
+    return f"{name} {'x'.join(shapes)}"
 
 
 def _nbytes(t) -> int:
@@ -241,10 +259,13 @@ class StepRecorder(TorchDispatchMode):
                 nbytes += sum(_nbytes(t) for t in tree_leaves(out))
         rec.flops += flops
         rec.bytes += nbytes
-        tally = rec.by_op[name]
-        tally["count"] += 1
-        tally["flops"] += flops
-        tally["bytes"] += nbytes
+        tallies = [rec.by_op[name]]
+        if flops:
+            tallies.append(rec.by_product[_signature(name, args)])
+        for tally in tallies:
+            tally["count"] += 1
+            tally["flops"] += flops
+            tally["bytes"] += nbytes
         return out
 
 

@@ -7,6 +7,9 @@ Sharding scheme (baseline), as ``repro.models.gnn.build``:
     ``REPRO_GNN_CHANNEL_SHARD=1`` EquiformerV2 pins the channel dim of its
     irrep features to 'model'
   * params — last dim sharded over 'model' when divisible (channel TP)
+
+The models state inside their step the layouts GSPMD gives the
+reference's (see each model's docstring).
 """
 from __future__ import annotations
 

@@ -15,6 +15,16 @@ axis) pins the node features' channel dim to that axis of their mesh when
 they are DTensors (the dry-run); it changes no value, and plain tensors
 pass unchanged.
 
+On DTensors (the dry-run's layouts, as GSPMD lays out the reference's
+step): the edges over the data axes, the node features whole over them
+and their channels over 'model'. The per-edge Wigner matrices are built
+on each rank's edges, whole over 'model'; the rotations into and out of
+the edge frame run on each rank's edges and channels; the SO(2) mixing
+gathers each edge's channels over 'model' (the reference's all-gather)
+and mixes them into each rank's block of the weights' columns; the
+node-wise FFN and the readout run on each data rank's block of the nodes,
+as the reference's do on two pods.
+
 Config (assigned): n_layers=12, d_hidden=128, l_max=6, m_max=2, n_heads=8.
 """
 from __future__ import annotations
@@ -25,7 +35,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ...distributed.sharding import keep_batch, keep_split, on_shards
+from ...distributed.sharding import (keep_batch, keep_split, on_shards,
+                                     split_over, whole)
 from .. import params_from_arrays  # noqa: F401  (re-exported)
 from . import so3
 from .common import (GraphBatch, mlp_apply, mlp_params, rows_of,
@@ -176,6 +187,45 @@ def _so2_place(cols, radial, msets, order, C, dim):
     return blk.new_zeros((blk.shape[0], dim, C)).index_copy(1, order, blk)
 
 
+def _ffn(h, lp, l_max, C):
+    """The equivariant FFN's update of ``h`` (N, dim, C): the per-l norm,
+    the scalars' gate (SiLU for l = 0, a sigmoid for the others) and the
+    per-l channel mixing. Per node, so on DTensors each data rank runs its
+    block of the nodes with all their channels, the gate whole over
+    'model' as the reference's, into its block of the output channels
+    (``sharding.on_shards``: no DTensor slices a split tensor), and the
+    result is gathered over the data axes."""
+    (gl,) = lp["ffn_gate"]
+    blocks = _blocks(l_max)
+
+    def update(x, gains, gw, gb, mix, cols):
+        xn = _irrep_norm(x, gains, l_max)
+        gate = xn[:, 0, :] @ gw + gb                      # (n, 2C)
+        g1, g2 = gate[:, cols], gate[:, C + cols]
+        return torch.cat([
+            torch.einsum("nmc,cd->nmd", xn[:, sl, :], mix[l])
+            * (F.silu(g1) if l == 0 else torch.sigmoid(g2))[:, None, :]
+            for l, sl in enumerate(blocks)], 1)
+
+    x = whole(split_over(h, 0, ("pod", "data")), (0,))
+    cols = torch.arange(C, device=h.device)   # cut to each rank's channels
+    out = on_shards(update, (x, whole(lp["ln"]), whole(gl["w"]),
+                             whole(gl["b"]), lp["ffn_mix"], cols),
+                    (("node", None, None), (None, None), (None, None),
+                     (None,), (None, None, "col"), ("col",)),
+                    ("node", None, "col"))
+    return keep_split(out, (2,))
+
+
+def _rotate(D, feat):
+    """``D @ feat`` per edge: (E, dim, dim) by (E, dim, C). Independent per
+    edge and channel, so on DTensors each rank rotates its edges' block of
+    channels (``sharding.on_shards``)."""
+    return on_shards(torch.bmm, (D, feat),
+                     (("edge", None, None), ("edge", None, "channel")),
+                     ("edge", None, "channel"))
+
+
 def _cshard(cfg: EquiformerV2Config, x):
     """Layout pin: the last (channel) dim over ``channel_shard_axis``."""
     from torch.distributed.tensor import DTensor
@@ -191,7 +241,6 @@ def forward(params, g: GraphBatch, cfg: EquiformerV2Config):
     C, dim, H = cfg.channels, cfg.sh_dim, cfg.n_heads
     dev = g.pos.device
     msets, order = _m_index_tensors(cfg.l_max, cfg.m_max, dev)
-    blocks = _blocks(cfg.l_max)
 
     emb = params["species_embed"][g.species]
     h = _cshard(cfg, torch.cat([emb[:, None, :],
@@ -212,17 +261,21 @@ def forward(params, g: GraphBatch, cfg: EquiformerV2Config):
     Dt = D.transpose(1, 2)
 
     for lp in params["layers"]:
-        hn = _irrep_norm(h, lp["ln"], cfg.l_max)
+        # pinned: the gradients the edges scatter into the nodes are
+        # reduced over the data axes once, not per l-block of the norm
+        hn = keep_split(_irrep_norm(h, lp["ln"], cfg.l_max), (2,))
         radial = mlp_apply(lp["radial"], rbf) * edge_valid[:, None]  # (E, C)
 
-        # eSCN message: rotate -> per-m SO(2) mixing -> rotate back
-        src_feat = torch.bmm(D, rows_of(hn, g.src))
+        # eSCN message: rotate -> per-m SO(2) mixing -> rotate back. The
+        # rotations run on each rank's edges and channels, D whole over
+        # 'model'; the mixing gathers each edge's channels
+        src_feat = _rotate(D, rows_of(hn, g.src))
         msg_edge = _so2_conv(src_feat, lp["so2"], radial, msets, order, C)
-        msg = torch.bmm(Dt, msg_edge)                     # back to global
+        msg = _rotate(Dt, split_over(msg_edge, 2, "model"))  # back to global
 
         # attention over incoming edges from invariant channels
         inv = torch.cat([rows_of(hn, g.dst)[:, 0, :], msg[:, 0, :]], -1)
-        logits = mlp_apply(lp["attn"], inv)               # (E, H)
+        logits = mlp_apply(lp["attn"], keep_batch(inv))   # (E, H)
         if g.edge_mask is not None:
             logits = torch.where(g.edge_mask[:, None] > 0, logits, -1e30)
         att = scatter_softmax(logits, g.dst, N)           # (E, H)
@@ -243,16 +296,10 @@ def forward(params, g: GraphBatch, cfg: EquiformerV2Config):
                                                     g.dst, N)), (2,))
 
         # equivariant FFN: scalars gate all l-blocks
-        hn2 = _irrep_norm(h, lp["ln"], cfg.l_max)
-        gate = mlp_apply(lp["ffn_gate"], hn2[:, 0, :])    # (N, 2C)
-        g1, g2 = gate[:, :C], gate[:, C:]
-        up = torch.cat([
-            torch.einsum("nmc,cd->nmd", hn2[:, sl, :], lp["ffn_mix"][l])
-            * (F.silu(g1) if l == 0 else torch.sigmoid(g2))[:, None, :]
-            for l, sl in enumerate(blocks)], 1)
-        h = keep_split(h + _cshard(cfg, up), (2,))
+        h = keep_split(h + _cshard(cfg, _ffn(h, lp, cfg.l_max, C)), (2,))
 
-    node_e = mlp_apply(params["readout"], h[:, 0, :])[:, 0]
+    node_e = mlp_apply(params["readout"],
+                       split_over(h[:, 0, :], 0, ("pod", "data")))[:, 0]
     if g.node_mask is not None:
         node_e = node_e * g.node_mask
     gid = (g.graph_id if g.graph_id is not None

@@ -9,7 +9,11 @@ Config (assigned): n_layers=16, d_hidden=70, gated aggregator.
 
 Mirrors ``repro.models.gnn.gatedgcn``: the layer parameters stay stacked
 over layers (so the reference's tree carries over unchanged) and the
-reference's ``lax.scan`` is a Python loop over their leading axis.
+reference's ``lax.scan`` is a Python loop over their leading axis. On
+DTensors the edges run over the data axes and each product into its
+rank's block of the weight's columns (over 'model'); the node products
+run on each data rank's block of the nodes, gathered before the edges
+read them.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ...distributed.sharding import (keep_batch, keep_split, on_shards,
+                                     split_over, whole)
 from .. import params_from_arrays  # noqa: F401  (re-exported)
 from .common import GraphBatch, graph_pool, node_nll, rows_of, scatter_sum
 
@@ -62,27 +68,42 @@ def _ln(x, g):
 
 def forward(params, g: GraphBatch, cfg: GatedGCNConfig):
     n = g.n_nodes
-    h = g.x @ params["embed_x"]
+    h = _mm(g.x, params["embed_x"])
     if g.edge_attr is not None:
-        e = g.edge_attr @ params["embed_e"]
+        e = _mm(g.edge_attr, params["embed_e"])
     else:
         e = h.new_zeros((g.n_edges, cfg.d_hidden))
 
     layers = params["layers"]
     for i in range(layers["A"].shape[0]):
         lp = {k: v[i] for k, v in layers.items()}
-        eh = h @ lp["A"]
-        msg_src = h @ lp["B"]
+        # each data rank multiplies its block of the nodes, with all their
+        # features, into its block of 'model' columns; the results the
+        # edges read are gathered over the data axes first
+        hw = split_over(whole(h), 0, ("pod", "data"))
+        e = split_over(e, 0, ("pod", "data"))
+        eh = keep_split(_mm(hw, lp["A"]), (1,))
+        msg_src = keep_split(_mm(hw, lp["B"]), (1,))
         e = e + F.relu(_ln(rows_of(eh, g.src) + rows_of(msg_src, g.dst)
-                           + e @ lp["C"], lp["ln_e"]))
+                           + _mm(keep_batch(e), lp["C"]), lp["ln_e"]))
         gate = torch.sigmoid(e)
         if g.edge_mask is not None:
             gate = gate * g.edge_mask[:, None]
-        vh = rows_of(h @ lp["V"], g.src)
+        vh = rows_of(keep_split(_mm(hw, lp["V"]), (1,)), g.src)
         num = scatter_sum(gate * vh, g.dst, n)
         den = scatter_sum(gate, g.dst, n) + 1e-6
-        h = h + F.relu(_ln(h @ lp["U"] + num / den, lp["ln_h"]))
+        # the nodes whole again, their features over 'model'
+        h = keep_split(h + F.relu(_ln(_mm(hw, lp["U"]) + num / den,
+                                      lp["ln_h"])), (1,))
     return h @ params["head"]
+
+
+def _mm(x, w):
+    """``x @ w``: on DTensors each rank multiplies its rows of ``x`` (all
+    its features) into its block of ``w``'s columns, as the reference's
+    specs split ``w``'s last dim over 'model' (``sharding.on_shards``)."""
+    return on_shards(torch.mm, (x, w), (("row", None), (None, "col")),
+                     ("row", "col"))
 
 
 def loss_fn(params, g: GraphBatch, labels, cfg: GatedGCNConfig):

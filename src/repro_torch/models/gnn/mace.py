@@ -8,6 +8,16 @@ writes become out-of-place ops: each l-block of an irrep tensor is summed
 (in the reference's path order) or computed on its own, and the blocks
 are concatenated, so autograd never meets an in-place write.
 
+On DTensors (the dry-run's layouts, as GSPMD lays out the reference's
+step): the edges over the data axes, the nodes whole, the channels over
+'model'. The spherical harmonics and the A-basis CG products run on each
+rank's edges and channels; the channel mixing (``w_msg``, ``w_self``)
+runs on each data rank's nodes and mixes all their channels into each
+rank's block of the weights' columns, so the B-basis CG products stay on
+each rank's channels (with whole channels on every 'model' rank they did
+12 times the reference's products per device at the production 16x16
+mesh).
+
 Config (assigned): n_layers=2, d_hidden=128 channels, l_max=2,
 correlation_order=3, n_rbf=8, E(3)-equivariant (tested by rotation).
 """
@@ -18,7 +28,7 @@ import math
 
 import torch
 
-from ...distributed.sharding import keep_split, on_shards
+from ...distributed.sharding import keep_split, on_shards, split_over, whole
 from .. import params_from_arrays  # noqa: F401  (re-exported)
 from . import so3
 from .common import GraphBatch, mlp_apply, mlp_params, rows_of, scatter_sum
@@ -105,6 +115,19 @@ def _path_sum(contribs: dict, like: torch.Tensor, l_max: int):
     return torch.cat(out, dim=-2)
 
 
+def _channel_mix(x, w):
+    """``einsum("nmc,cd->nmd", x, w)``: each node's channels mixed. On
+    DTensors each rank mixes all of ``x``'s channels, on its block of the
+    nodes where they are split, into its block of ``w``'s columns, as the
+    reference's specs split ``w``'s last dim over 'model'
+    (``sharding.on_shards``), so the result keeps the channel split that
+    the CG products run on."""
+    return on_shards(lambda x, w: torch.einsum("nmc,cd->nmd", x, w),
+                     (whole(x, (0,)), w),
+                     (("node", None, None), (None, "col")),
+                     ("node", None, "col"))
+
+
 def _cg_combine(a, b, l_max, path_w, paths):
     """a, b: (B, dim, C) irreps; path_w: (n_paths, C) or per-path list.
     Returns (B, dim, C) = sum over paths of weighted CG products. The
@@ -176,19 +199,22 @@ def forward(params, g: GraphBatch, cfg: MACEConfig):
                 ("edge", None, "channel"))
             msg = msg * radial[:, pi, None, :]
             contribs.setdefault(l3, []).append(scatter_sum(msg, g.dst, N))
-        # nodes whole, channels split, as the reference's specs lay them out
-        A = keep_split(_path_sum(contribs, h, cfg.l_max), (2,))
+        # nodes whole, channels split, as the reference's specs lay them
+        # out; the channel mixing on each data rank's nodes
+        A = split_over(keep_split(_path_sum(contribs, h, cfg.l_max), (2,)),
+                       0, ("pod", "data"))
         # per-l channel mixing of the aggregated A-basis
-        A = torch.cat([torch.einsum("nmc,cd->nmd", A[:, sl, :], lp["w_msg"][l])
-                       for l, sl in enumerate(blocks)], 1)
+        A = keep_split(torch.cat([_channel_mix(A[:, sl, :], lp["w_msg"][l])
+                                  for l, sl in enumerate(blocks)], 1), (2,))
 
         # --- B-basis: iterated CG products (correlation order 3) ---
         B2 = _cg_combine(A, A, cfg.l_max, lp["w_p2"], paths)
         B3 = _cg_combine(B2, A, cfg.l_max, lp["w_p3"], paths)
 
         # --- update: per-l self-interaction + weighted B-basis sum ---
+        hs = split_over(h, 0, ("pod", "data"))
         h = keep_split(torch.cat([
-            torch.einsum("nmc,cd->nmd", h[:, sl, :], lp["w_self"][l])
+            keep_split(_channel_mix(hs[:, sl, :], lp["w_self"][l]), (2,))
             + lp["w_comb"][0, l] * A[:, sl, :]
             + lp["w_comb"][1, l] * B2[:, sl, :]
             + lp["w_comb"][2, l] * B3[:, sl, :]

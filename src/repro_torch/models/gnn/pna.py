@@ -4,7 +4,9 @@ amplification/attenuation) -> 12-way concat -> linear, with a pairwise
 message MLP.
 
 Config (assigned): n_layers=4, d_hidden=75, aggregators mean-max-min-std,
-scalers id-amp-atten. Mirrors ``repro.models.gnn.pna``.
+scalers id-amp-atten. Mirrors ``repro.models.gnn.pna``. On DTensors the
+update contracts each data rank's block of its 13d inputs (``_update``),
+as GSPMD splits the reference's update on one pod.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import dataclasses
 
 import torch
 
+from ...distributed.sharding import keep_split, on_shards, split_over
 from .. import params_from_arrays  # noqa: F401  (re-exported)
 from .common import (GraphBatch, degrees, graph_pool, mlp_apply, mlp_params,
                      node_nll, rows_of, scatter_max, scatter_mean,
@@ -45,6 +48,23 @@ def init_params(gen: torch.Generator, cfg: PNAConfig):
     }
 
 
+def _update(upd, x):
+    """``mlp_apply(upd, x)`` of the one-layer update on (N, 13d). On
+    DTensors each rank contracts its data block of ``x``'s features with
+    the same rows of its block of the weight's columns (split over
+    'model', as the reference's specs split it), and the partial sums are
+    reduced over the data axes at once (``sharding.on_shards``): the
+    nodes stay whole, and no rank runs the whole product."""
+    (lyr,) = upd
+    dp = ("pod", "data")
+    # pinned twice: the gradient's partial sums over 'model' are reduced
+    # on each data rank's block, before the blocks are gathered
+    x = keep_split(split_over(keep_split(x, ()), 1, dp), (1,))
+    w = split_over(lyr["w"], 0, dp)
+    return keep_split(on_shards(torch.mm, (x, w), ((None, "k"), ("k", "col")),
+                                (None, "col")), (1,)) + lyr["b"]
+
+
 def forward(params, g: GraphBatch, cfg: PNAConfig):
     n = g.n_nodes
     h = g.x @ params["embed"]
@@ -70,7 +90,7 @@ def forward(params, g: GraphBatch, cfg: PNAConfig):
         std = torch.sqrt(torch.maximum(var, var.new_tensor(0.0)) + 1e-10)
         aggs = torch.cat([mean, mx, mn, std], -1)                   # (N, 4d)
         scaled = torch.cat([aggs, aggs * amp, aggs * att], -1)      # 12d
-        h = h + mlp_apply(lp["upd"], torch.cat([h, scaled], -1))
+        h = h + _update(lp["upd"], torch.cat([h, scaled], -1))
         h = (h - torch.mean(h, -1, keepdim=True)) * torch.rsqrt(
             torch.var(h, -1, keepdim=True, correction=0) + 1e-5) * lp["ln"]
     return h @ params["head"]

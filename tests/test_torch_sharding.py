@@ -160,6 +160,7 @@ def test_layout_helpers_leave_plain_tensors_alone():
     x = torch.randn(6, 5, generator=g)
     idx = torch.randint(0, 5, (6, 1), generator=g)
     assert shr.keep_batch(x) is x and shr.keep_split(x, (1,)) is x
+    assert shr.whole(x) is x and shr.split_over(x, 0, ("pod", "data")) is x
     assert torch.equal(shr.take_sharded(
         lambda t, i: t.gather(-1, i), x, -1, idx), x.gather(-1, idx))
     a, b = torch.randn(4, 3, 2, generator=g), torch.randn(2, generator=g)
@@ -204,6 +205,53 @@ def test_nested_scan_flops():
 
     _, rec = trace(outer, x, ws)
     assert hlo_cost(rec)["flops"] == 3 * 5 * 2 * 64 ** 3
+
+
+def test_products_listed_by_operand_shapes():
+    """Each operation with FLOPs is tallied by its name and operands'
+    shapes, so a product whole over a mesh dim shows beside a split one;
+    elementwise work is not listed."""
+    def step(x, w, v):
+        return torch.sin(x @ w) @ v + x @ w
+
+    _, rec = trace(step, torch.ones(8, 4), torch.ones(4, 6),
+                   torch.ones(6, 6))
+    assert dict(rec.by_product) == {
+        "mm (8,4)x(4,6)": {"count": 2, "flops": 2 * 2 * 8 * 4 * 6,
+                           "bytes": 2 * 4 * (32 + 24 + 48)},
+        "mm (8,6)x(6,6)": {"count": 1, "flops": 2 * 8 * 6 * 6,
+                           "bytes": 4 * (48 + 36 + 48)}}
+    assert rec.top_ops("flops", 1, "by_product")[0][0] == "mm (8,4)x(4,6)"
+
+
+def test_reference_dot_count_per_trip():
+    """The reference's HLO read per loop trip (the small cells' child,
+    ``torch_dryrun_ref_checks.dots_by_shape``): a ``lax.scan`` of 7
+    products counts 7 of them. Its own count (``hlo_cost``) skips a
+    ``while`` whose carried tuple has an ``/*index=5*/`` comment (six or
+    more elements, as GatedGCN's layer scan has): a reference fault the
+    port's tests read around."""
+    from repro.launch.hlo_analysis import hlo_cost as ref_cost
+    from torch_dryrun_ref_checks import dots_by_shape
+
+    def body(carry, w):
+        x, *rest = carry
+        return (x @ w, *[jnp.sin(r) for r in rest]), None
+
+    def f(x, ws, *rest):
+        return jax.lax.scan(body, (x, *rest), ws)[0]
+
+    x, ws = jnp.ones((16, 32)), jnp.ones((7, 32, 32))
+    small = jax.jit(f).lower(x, ws).compile().as_text()
+    wide = jax.jit(f).lower(x, ws, *[jnp.ones(3)] * 5).compile().as_text()
+    one = 2 * 16 * 32 * 32
+    assert "/*index=5*/" in wide and "/*index=5*/" not in small
+    for text in (small, wide):
+        dots, flops = dots_by_shape(text)
+        assert flops == 7 * one
+        assert dots == {"f32[16,32] <- f32[16,32] x f32[32,32]": [7, 7 * one]}
+    assert ref_cost(small)["flops"] == 7 * one
+    assert ref_cost(wide)["flops"] == 0
 
 
 def test_bytes_positive_and_bounded():

@@ -1,6 +1,6 @@
 """Dry-run checks of ``tests/test_torch_dryrun.py``, run in a child
 process (the ``fake`` process group must not live in a test worker):
-``python tests/torch_dryrun_checks.py OUT_DIR [meshes | equiformer]``
+``python tests/torch_dryrun_checks.py OUT_DIR [meshes | gnn]``
 prints one JSON object of results. Imports the port alone (and the small
 configs' arguments from ``torch_dryrun_ref_checks``, which import
 nothing)."""
@@ -64,20 +64,20 @@ def _small_meshes(archs, meshes):
     """Small cells of ``archs`` on fake meshes (``meshes``: names of
     ``MESHES`` or ``EXTRA_MESHES``): the small LM and MoE through train,
     prefill and decode, the smoke Wide & Deep through its train, serve and
-    retrieval shapes, the smoke EquiformerV2 on a few molecules; (2, 4) and
-    (2, 2, 4) are the production meshes' shapes, one and two pods. The
-    MoE's train step runs also with ``REPRO_MOE_EP=1``."""
+    retrieval shapes, the smoke GatedGCN and PNA on a small full graph and
+    MACE and EquiformerV2 on a few molecules; (2, 4) and (2, 2, 4) are the
+    production meshes' shapes, one and two pods. The MoE's train step runs
+    also with ``REPRO_MOE_EP=1``. Each record lists its products by
+    operand shapes (``products``)."""
     from repro_torch import configs
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_local_mesh
-    from torch_dryrun_ref_checks import MESHES, SMALL
+    from torch_dryrun_ref_checks import GNN_ARCHS, MESHES, SMALL, use_smoke
 
     _tiny_lm(2)
     _tiny_moe()
-    for arch in ("wide_deep", "equiformer_v2"):
-        mod = configs.get(arch)
-        mod.config = mod.smoke_config
-        mod.SHAPES = SMALL[arch][1]
+    for arch in ("wide_deep",) + GNN_ARCHS:
+        use_smoke(configs.get(arch), arch)
     cells = [(a, s, "") for a in archs for s in SMALL[a][1]]
     if "olmoe_1b_7b" in archs:
         cells.append(("olmoe_1b_7b", "train_4k", "ep"))
@@ -99,8 +99,8 @@ def _small_meshes(archs, meshes):
                 "ok": rec["ok"], "error": rec.get("error"),
                 "replicated_ops": rec.get("replicated_ops"),
                 "dot_flops": rec.get("dot_flops_per_device"),
-                "flops_by_op": {k: f for k, _, f, _ in
-                                (rec.get("top_ops") or {}).get("flops", [])},
+                "products": {k: [c, f] for k, c, f, _ in
+                             (rec.get("top_ops") or {}).get("products", [])},
                 "collectives": rec.get("collectives"),
                 "collective_groups": rec.get("collective_groups"),
                 "trace_s": rec.get("trace_s")}
@@ -199,9 +199,10 @@ def main(out_dir: str, group: str = "") -> None:
     if group == "meshes":                # children of their own: the
         results = {"meshes": _small_meshes(   # slowest
             ("qwen2_1_5b", "olmoe_1b_7b", "wide_deep"), ("2x4", "2x2x4"))}
-    elif group == "equiformer":
-        results = {"meshes": _small_meshes(
-            ("equiformer_v2",), ("2x4", "2x2x4", "2x1"))}
+    elif group == "gnn":
+        from torch_dryrun_ref_checks import GNN_ARCHS
+        results = {"meshes": _small_meshes(GNN_ARCHS,
+                                           ("2x4", "2x2x4", "2x1"))}
     else:
         results = {"gcda_small_mesh": _gcda_small_mesh(
                        os.path.join(out_dir, "a")),
