@@ -120,29 +120,6 @@ def random_access_matrix(table: Table, group_col: str, value_col: str,
 # ---------------------------------------------------------------------------
 
 
-def flops_estimate(op: str, shapes: Sequence[Sequence[int]],
-                   iters: int = 1) -> float:
-    """Analytic floating-point work of one analytical-operator execution,
-    from its input shapes — the kernel-span payload telemetry attaches.
-    ``op`` is a physical-operator kind ("MatMul" / "Similarity" /
-    "Regression"); unknown ops and degenerate shapes cost 0."""
-    shapes = [tuple(int(d) for d in s) for s in shapes]
-    if not shapes or len(shapes[0]) != 2:
-        return 0.0
-    m, k = shapes[0]
-    if op == "MatMul":
-        n = shapes[1][1] if len(shapes) > 1 and len(shapes[1]) == 2 else m
-        return 2.0 * m * k * n
-    if op == "Similarity":
-        # fused cosine: the dot products plus both norm reductions
-        n = shapes[1][0] if len(shapes) > 1 and len(shapes[1]) == 2 else m
-        return 3.0 * m * k * n
-    if op == "Regression":
-        # per iteration: forward matvec + gradient matvec over (m, k)
-        return 4.0 * m * k * max(iters, 1)
-    return 0.0
-
-
 def _block(t: torch.Tensor, mesh, spec) -> torch.Tensor:
     """This rank's block of ``t``, contiguous: the kernels read rows of a
     contiguous matrix, so a column block (Y's over 'model') is copied once

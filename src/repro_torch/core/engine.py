@@ -376,20 +376,42 @@ class GredoEngine:
             self._shard_runtime = shard_mod.ShardRuntime(self.n_shards)
         return dag2, self._shard_runtime
 
+    def _compile(self, trace, cat: str, q: Query, build):
+        """plan -> build -> optimize -> shard (and verify, in debug mode),
+        each an engine phase of ``trace``. Returns the logical plan, the
+        naive DAG, the DAG to run, the optimizer's report and the shard
+        runtime (or None)."""
+        if trace is not None:
+            trace.phase("engine.plan", cat)
+        p = self.plan(q)
+        if trace is not None:
+            trace.phase("engine.build", cat)
+        naive = build(p)
+        if trace is not None:
+            trace.phase("engine.optimize", cat)
+        dag, report = self._lower(naive)
+        if trace is not None:
+            trace.phase("engine.shard", cat)
+        final, shard_rt = self._shard_plan(dag)
+        self._debug_verify(naive, dag, final)
+        return p, naive, final, report, shard_rt
+
     def query(self, q: Query) -> Table:
         traversal.COUNTERS.reset()
-        trace, ib0 = self._begin_query(f"query[{','.join(q.source_names())}]")
+        trace, ib0 = self._begin_query(
+            f"query[{','.join(q.source_names())}]", "gcdi")
         t0 = time.perf_counter()
-        p = self.plan(q)
-        naive = physical.build_gcdi(self.db, p, mode=self.mode)
-        dag, report = self._lower(naive)
-        opt_dag = dag
-        dag, shard_rt = self._shard_plan(dag)
-        self._debug_verify(naive, opt_dag, dag)
+        p, naive, dag, report, shard_rt = self._compile(
+            trace, "gcdi", q,
+            lambda p: physical.build_gcdi(self.db, p, mode=self.mode))
+        if trace is not None:
+            trace.phase("engine.execute", "gcdi")
         ctx = physical.ExecContext(self.db, trace=trace,
                                    fence_device=self._fence_device(),
                                    shard=shard_rt, device=self.device)
         result = physical.execute(dag, ctx)
+        if trace is not None:
+            trace.phase("engine.record", "gcdi")
         notes = list(p.notes)
         if self.mode == "single" and q.match is not None:
             notes.insert(0, "single-engine: match via edge-table equi-joins")
@@ -406,9 +428,9 @@ class GredoEngine:
             operators=physical.collect_stats(dag),
             rewrites=report.notes() if report else [])
         self._attach_delta_stats(q)
-        self._finish_query(trace, ctx, ib0)
         if self._recorder is not None:
             self._recorder.log_query(q, result, self.last_stats.seconds)
+        self._finish_query(trace, ctx, ib0, "query")
         return result
 
     def explain(self, q: Query) -> str:
@@ -461,7 +483,8 @@ class GredoEngine:
             d = self.last_interbuffer_delta
             lines.append("interbuffer (this query): "
                          + " ".join(f"{k}={d[k]:+g}" for k in
-                                    ("hits", "misses", "bypasses", "evictions")
+                                    ("hits", "misses", "bypasses", "evictions",
+                                     "oversize")
                                     if k in d))
         lines.append(f"interbuffer: {self.interbuffer.counters()} (cumulative)")
         tk = {k.split(".", 1)[1]: v
@@ -496,43 +519,54 @@ class GredoEngine:
     def _fence_device(self) -> bool:
         return self.telemetry is not None and self.telemetry.fence_device
 
-    def _begin_query(self, label: str):
-        """Open the per-query observability window: an inter-buffer counter
-        snapshot (always — 6 ints), the flight recorder's pre-query marks,
-        and with telemetry on, a registry snapshot plus a fresh trace."""
+    def _begin_query(self, label: str, cat: str):
+        """Open the per-query observability window: with telemetry on, a
+        fresh trace and a registry snapshot; an inter-buffer counter
+        snapshot (always — 6 ints) and the flight recorder's pre-query
+        marks."""
+        tel = self.telemetry
+        trace = None
+        if tel is not None:
+            trace = tel.collector.start_query(label)
+            trace.phase("engine.telemetry", cat)
+            self._pre_snapshot = tel.registry.snapshot()
+            tel.qerror.start_plan()
+            trace.phase("engine.record", cat)
         ib0 = self.interbuffer.metrics()
         self._last_label = label
         if self.observer is not None:
             self.observer.begin(label)
-        tel = self.telemetry
-        if tel is None:
-            return None, ib0
-        self._pre_snapshot = tel.registry.snapshot()
-        tel.qerror.start_plan()
-        return tel.collector.start_query(label), ib0
+        return trace, ib0
 
     def _finish_query(self, trace, ctx: physical.ExecContext,
-                      ib0: dict, kind: str = "query") -> None:
+                      ib0: dict, kind: str) -> None:
+        """Close the window: the inter-buffer delta, with telemetry on the
+        session's own work (counters, the q-error walk, the registry delta),
+        then the flight recorder, which users pay with telemetry off too,
+        and last the trace's one close."""
         self.last_interbuffer_delta = telemetry_mod.Registry.delta(
             ib0, self.interbuffer.metrics())
-        tel = self.telemetry
-        if tel is None:
+        if trace is not None:
+            self._telemetry_tail(trace, kind)
+        if self.observer is not None:
             # flight-recorder capture happens even without telemetry — the
             # record then carries plan fingerprint + operator stats +
             # inter-buffer delta (no span tree / registry delta).
-            if self.observer is not None:
-                self.observer.observe(self, kind=kind)
-            return
-        seconds = self.last_stats.seconds
+            self.observer.observe(self, kind=kind)
         if trace is not None:
-            trace.close(seconds=seconds, nodes_run=ctx.nodes_run,
+            trace.close(seconds=self.last_stats.seconds,
+                        nodes_run=ctx.nodes_run,
                         nodes_reused=ctx.nodes_reused)
-            tel.collector.trim()    # re-check the span bound now that this
-                                    # query's spans are all recorded
+
+    def _telemetry_tail(self, trace, kind: str) -> None:
+        cat = "gcdi" if kind == "query" else "gcda"
+        trace.phase("engine.telemetry", cat)
+        tel = self.telemetry
+        seconds = self.last_stats.seconds
         reg = tel.registry
         reg.counter("engine.queries").inc()
         reg.histogram("engine.query_seconds").observe(seconds)
-        label = trace.label if trace is not None else "query"
+        label = trace.label
         if self.last_report is not None:
             for rule, n in self.last_report.rule_counts().items():
                 reg.counter(f"optimizer.rewrites.{rule}").inc(n)
@@ -556,8 +590,9 @@ class GredoEngine:
         walk(self.last_dag)
         self.last_registry_delta = telemetry_mod.Registry.delta(
             self._pre_snapshot, reg.snapshot())
-        if self.observer is not None:
-            self.observer.observe(self, kind=kind)
+        tel.collector.trim()    # re-check the span bound now that this
+                                # query's operator spans are all recorded
+        trace.phase("engine.record", cat)
 
     # ------------------------------------------------------------------ GCDA
     def analyze(self, task: GCDIATask, *, use_kernel: bool | None = None,
@@ -568,21 +603,24 @@ class GredoEngine:
         signature; signatures embed source write epochs, so reuse survives
         exactly until a source collection mutates."""
         traversal.COUNTERS.reset()
-        trace, ib0 = self._begin_query(f"gcdia:{task.analytics.op}")
+        trace, ib0 = self._begin_query(f"gcdia:{task.analytics.op}", "gcda")
         t0 = time.perf_counter()
-        p = self.plan(task.integration)
-        naive = physical.build_gcdia(self.db, p, task, mode=self.mode,
-                                     use_kernel=use_kernel, iters=iters)
-        dag, report = self._lower(naive)
-        opt_dag = dag
-        dag, shard_rt = self._shard_plan(dag)
-        self._debug_verify(naive, opt_dag, dag)
+        p, naive, dag, report, shard_rt = self._compile(
+            trace, "gcda", task.integration,
+            lambda p: physical.build_gcdia(self.db, p, task, mode=self.mode,
+                                           use_kernel=use_kernel, iters=iters))
+        if trace is not None:
+            trace.phase("engine.estimate", "gcda")
         ests = physical.estimate(dag, self.db)
+        if trace is not None:
+            trace.phase("engine.execute", "gcda")
         ctx = physical.ExecContext(self.db, interbuffer=self.interbuffer,
                                    ests=ests, trace=trace,
                                    fence_device=self._fence_device(),
                                    shard=shard_rt, device=self.device)
         out = physical.execute(dag, ctx)
+        if trace is not None:
+            trace.phase("engine.record", "gcda")
         self.last_dag = dag
         self.last_naive_dag = naive
         self.last_report = report
@@ -599,11 +637,11 @@ class GredoEngine:
             rewrites=report.notes() if report else [],
             nodes_reused=ctx.nodes_reused)
         self._attach_delta_stats(task.integration)
-        self._finish_query(trace, ctx, ib0, kind="analyze")
         if self._recorder is not None:
             self._recorder.log_analyze(task, out, iters=iters,
                                        use_kernel=use_kernel,
                                        seconds=self.last_stats.seconds)
+        self._finish_query(trace, ctx, ib0, "analyze")
         return out
 
     # ------------------------------------------------------- graph utilities

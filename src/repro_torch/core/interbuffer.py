@@ -50,7 +50,7 @@ class InterBuffer:
     """LRU over an :class:`OrderedDict` (MRU at the end). Re-putting an
     existing key replaces it in place (no duplicate order entries), and
     eviction may drop every entry — a single matrix larger than the capacity
-    is not retained.
+    is not retained (``oversize`` counts such puts).
 
     Admission is cost-aware: a put carrying an ``est_cost`` (the §6.3
     estimated recompute cost of the producing sub-plan) is only admitted
@@ -77,6 +77,9 @@ class InterBuffer:
         self.misses = 0
         self.evictions = 0
         self.bypasses = 0
+        # puts admitted though larger than the capacity: the same put's
+        # eviction drops them, and every other entry with them
+        self.oversize = 0
 
     def get(self, key: str):
         with self._lock:
@@ -103,8 +106,11 @@ class InterBuffer:
             old = self._store.pop(key, None)
             if old is not None:
                 self._nbytes -= value_nbytes(old)
+            nbytes = value_nbytes(mat)
+            if nbytes > self.capacity_bytes:
+                self.oversize += 1
             self._store[key] = mat
-            self._nbytes += value_nbytes(mat)
+            self._nbytes += nbytes
             self._evict()
             return mat
 
@@ -112,15 +118,20 @@ class InterBuffer:
         """One-line hit/bypass accounting for explain output."""
         return (f"hits={self.hits} misses={self.misses} "
                 f"bypasses={self.bypasses} evictions={self.evictions} "
-                f"entries={len(self)} bytes={self._nbytes}")
+                + (f"oversize={self.oversize} " if self.oversize else "")
+                + f"entries={len(self)} bytes={self._nbytes}")
 
     def metrics(self) -> dict:
         """Numeric counter snapshot — the telemetry registry source. hits/
-        misses/bypasses/evictions are cumulative (delta-able); entries/bytes
-        are point-in-time gauges."""
-        return {"hits": self.hits, "misses": self.misses,
-                "bypasses": self.bypasses, "evictions": self.evictions,
-                "entries": len(self), "bytes": self._nbytes}
+        misses/bypasses/evictions/oversize are cumulative (delta-able);
+        entries/bytes are point-in-time gauges. Like the registry's own
+        counters, ``oversize`` appears once it is non-zero."""
+        out = {"hits": self.hits, "misses": self.misses,
+               "bypasses": self.bypasses, "evictions": self.evictions,
+               "entries": len(self), "bytes": self._nbytes}
+        if self.oversize:
+            out["oversize"] = self.oversize
+        return out
 
     def nbytes(self) -> int:
         return self._nbytes

@@ -218,11 +218,12 @@ _MAX_RECORD_SPANS = 512
 
 
 def _span_tree(trace) -> list:
-    """Serialize a QueryTrace's spans (id/parent/name/dur/detail), bounded
-    so one pathological plan can't bloat every dump."""
+    """Serialize a QueryTrace's operator spans (id/parent/name/dur/detail),
+    bounded so one pathological plan can't bloat every dump. The engine's
+    phase spans are left out: the tree is the operator DAG's."""
     if trace is None:
         return []
-    spans = list(getattr(trace, "spans", ()))[:_MAX_RECORD_SPANS]
+    spans = [s for s in trace.spans if not s.phase][:_MAX_RECORD_SPANS]
     return [{"id": s.id, "parent": s.parent, "name": s.name, "cat": s.cat,
              "dur": round(s.dur, 9), "detail": s.detail,
              "args": _finite({k: v for k, v in s.args.items()

@@ -371,29 +371,10 @@ def _estimate_capacity(g: Graph, prep: dict) -> int:
     return _round_capacity(int(2.0 * peak))
 
 
-def _kernel_span_args(hops: int, capacity: int, n_vertices: int,
-                      n_edges: int, prep: dict, launches: int) -> dict:
-    """Analytic flops/bytes of the device traversal — the span payload
-    ``roofline.from_trace`` reads (the operator is a DAG leaf, so the
-    generic shape-derived model in ``telemetry.kernel_args`` has nothing to
-    work from). Memory model: per hop, three int32 outputs plus per-slot
-    gather traffic over the padded capacity (the device moves padded
-    arrays regardless of validity), plus the predicate tables actually
-    read — edge tables scaled by the zone-survivor fraction."""
-    per_slot = 3 * 4 + (4 + 4 + 8 + 2 + 1)    # outputs + gathers
-    tbl_bytes = 0.0
-    for mem in prep["members"]:
-        if mem is not None:
-            tbl_bytes += n_vertices
-    for ep, ca in zip(prep["edge_preds"], prep["chunk_alives"]):
-        if ep is None:
-            continue
-        frac = (float(ca.sum()) / max(len(ca), 1)) if ca is not None else 1.0
-        tbl_bytes += frac * n_edges + (0 if ca is None else len(ca))
-    flops = float(hops) * capacity * 12.0 * launches
-    nbytes = (float(hops) * capacity * per_slot * launches + tbl_bytes)
-    return {"flops": flops, "bytes": int(nbytes), "hops": hops,
-            "capacity": capacity,
+def _kernel_span_args(hops: int, capacity: int) -> dict:
+    """The device traversal's span payload: hops, the launch capacity and
+    the zone chunks the predicate tables kept alive."""
+    return {"hops": hops, "capacity": capacity,
             "zone_chunks_alive": kernel_ops.COUNTERS.chunks_alive,
             "zone_chunks_total": kernel_ops.COUNTERS.chunks_total}
 
@@ -421,7 +402,6 @@ def device_match(g: Graph, pplan, *, flavor: str = "pallas",
     pattern = pplan.pattern
     start = prep["start_nids"]
     hops = len(prep["edge_vars"])
-    launches = 1
 
     if flavor == "jit":
         vcols, ecols = matcher.match_chain(
@@ -445,7 +425,6 @@ def device_match(g: Graph, pplan, *, flavor: str = "pallas",
                 raise RuntimeError(f"pattern frontier exceeded max capacity "
                                    f"{max_capacity}")
             cap *= 2
-            launches += 1
             COUNTERS.retries += 1
             COUNTERS.bump_retry(cap)
 
@@ -459,7 +438,6 @@ def device_match(g: Graph, pplan, *, flavor: str = "pallas",
         cols[evar] = col
     rel = Table(f"match:{pattern.graph}", cols)
     rel = pattern_mod.apply_deferred(g, pattern, rel, pplan.deferred)
-    kargs = _kernel_span_args(hops, cap, g.n_vertices, g.edges.nrows, prep,
-                              launches)
+    kargs = _kernel_span_args(hops, cap)
     kargs["flavor"] = flavor
     return rel, kargs

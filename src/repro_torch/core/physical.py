@@ -417,9 +417,8 @@ class DeviceMatchPattern(PhysicalOp):
         self.pplan = pplan
         self.access = access
         self.capacity = capacity
-        # per-execution analytic flops/bytes; merged into the telemetry span
-        # (this is a DAG leaf — the generic shape-derived kernel_args model
-        # has no inputs to derive from)
+        # per-execution launch facts (hops, capacity, zone chunks, flavor);
+        # merged into the telemetry span
         self.last_kernel_args: Optional[dict] = None
 
     def params(self):
@@ -1163,19 +1162,17 @@ def execute(node: PhysicalOp, ctx: ExecContext):
         node.stats.nbytes = value_nbytes(out)
     ctx.nodes_run += 1
     if trace is not None:
-        args: dict = {"sig": fingerprint(sig)}
+        args: dict = {}
         if gcda:
             args["dispatch_s"] = node.stats.seconds
             if ctx.fence_device:
                 sync = telemetry.fence(out)
                 args["sync_s"] = sync
                 node.stats.seconds += sync  # device wait belongs to the op
-            args.update(telemetry.kernel_args(node.kind, tuple(inputs), out,
-                                              iters=getattr(node, "iters", 1)))
             extra = getattr(node, "last_kernel_args", None)
             if extra:
-                # leaf kernels (DeviceMatchPattern) report their own
-                # flops/bytes — the shape-derived model above sees no inputs
+                # the traversal's hops, capacity and zone chunks; a
+                # born-sharded matrix's shard spec
                 args.update(extra)
         if node.stats.rows is not None:
             args["rows"] = node.stats.rows

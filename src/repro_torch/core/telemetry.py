@@ -25,8 +25,18 @@ them behind three primitives, all off-by-default and designed so the
 
 GCDA kernel spans carry ``dispatch_s`` (host time until the call returns)
 and ``sync_s`` (device synchronise wait), so device time is
-attributed separately from host time; ``benchmarks/roofline.py`` consumes
-these via its ``from_trace`` helper.
+attributed separately from host time.
+
+Besides the operator spans, the engine records *phase* spans
+(``engine.plan``, ``engine.build``, ``engine.optimize``, ``engine.shard``,
+``engine.estimate``, ``engine.execute``, ``engine.record``,
+``engine.telemetry``: :meth:`QueryTrace.phase`), disjoint, that cover a
+task from the trace's origin to its close. They are transparent to the
+operator views (``shape``, ``render``, ``children_of``). A trace's origin
+is also read on the profiler's clock (``QueryTrace.t0_ns``: Unix-epoch
+nanoseconds, the clock ``torch.profiler``'s events report), so a span
+starts at ``t0_ns + ts * 1e9`` there; the Chrome export is written on that
+clock, so an engine trace lies over a profiler trace of the same run.
 
 Everything here is dependency-free within the engine (numpy + stdlib; torch
 only inside ``fence``), so every core module may import it without cycles.
@@ -334,10 +344,10 @@ def default_registry() -> Registry:
 
 @dataclasses.dataclass
 class Span:
-    """One operator execution (or cache pseudo-event) in a query trace.
-    ``ts``/``dur`` are seconds relative to the owning trace's origin; spans
-    of a query nest strictly (a parent opens before and closes after all of
-    its children)."""
+    """One operator execution (or cache pseudo-event, or engine phase) in a
+    query trace. ``ts``/``dur`` are seconds relative to the owning trace's
+    origin; spans of a query nest strictly (a parent opens before and closes
+    after all of its children)."""
 
     id: int
     parent: int             # -1 for the query root
@@ -347,19 +357,28 @@ class Span:
     dur: float = 0.0
     detail: str = ""        # PhysicalOp.describe()
     args: dict = dataclasses.field(default_factory=dict)
+    phase: bool = False     # an engine phase, not an operator
 
 
 class QueryTrace:
     """The span tree of one query/analyze execution. ``begin``/``end`` keep
     an explicit open-span stack, matching the executor's recursion; an
     ``instant`` span records cache hits (inter-buffer / memo) as zero-ish
-    duration pseudo-spans so the trace covers every DAG node touched."""
+    duration pseudo-spans so the trace covers every DAG node touched.
+    ``phase`` records the engine's phases beside that stack.
 
-    def __init__(self, label: str, origin: Optional[float] = None):
+    ``t0`` is the origin on ``time.perf_counter``; ``t0_ns`` is the same
+    moment on the profiler's clock (``time.time_ns``, read between two
+    ``perf_counter`` reads)."""
+
+    def __init__(self, label: str):
         self.label = label
-        self.t0 = time.perf_counter() if origin is None else origin
+        before = time.perf_counter()
+        self.t0_ns = time.time_ns()
+        self.t0 = (before + time.perf_counter()) / 2
         self.spans: list[Span] = []
         self._stack: list[int] = []
+        self._phase: Optional[Span] = None
         self._lock = threading.Lock()
         root = Span(id=0, parent=-1, name="query", cat="query",
                     ts=0.0, detail=label)
@@ -375,6 +394,19 @@ class QueryTrace:
                                    detail=detail))
             self._stack.append(sid)
             return sid
+
+    def phase(self, name: str, cat: str) -> None:
+        """End the open engine phase, if any, and open ``name`` at the same
+        clock read, so consecutive phases are disjoint and leave no gap. A
+        phase is a child of the root that the operator spans do not nest
+        under: the operator views stay the DAG's."""
+        with self._lock:
+            ts = time.perf_counter() - self.t0
+            if self._phase is not None:
+                self._phase.dur = ts - self._phase.ts
+            self._phase = Span(id=len(self.spans), parent=0, name=name,
+                               cat=cat, ts=ts, phase=True)
+            self.spans.append(self._phase)
 
     def end(self, sid: int, **args) -> None:
         with self._lock:
@@ -393,14 +425,20 @@ class QueryTrace:
         return sid
 
     def close(self, **args) -> None:
-        """Close the query root (and anything left open)."""
+        """Close the query root, and the open phase with it (and anything
+        left open)."""
         for sid in reversed(self._stack[1:]):
             self.end(sid)
         self.end(0, **args)
+        if self._phase is not None:
+            root = self.spans[0]
+            self._phase.dur = root.ts + root.dur - self._phase.ts
+            self._phase = None
 
     # -- views --
     def children_of(self, sid: int) -> list[Span]:
-        return [s for s in self.spans if s.parent == sid]
+        """The operator spans under ``sid`` (phases are not operators)."""
+        return [s for s in self.spans if s.parent == sid and not s.phase]
 
     def shape(self) -> list:
         """Nested ``(name, [children...])`` of the operator spans — directly
@@ -437,7 +475,8 @@ class QueryTrace:
         lines.append(f"{self.label}  (total_ms={total * 1e3:.3f})")
         rec(0, 1)
         if top > 0:
-            ops = [s for s in self.spans if s.cat in ("gcdi", "gcda")]
+            ops = [s for s in self.spans
+                   if s.cat in ("gcdi", "gcda") and not s.phase]
             ops.sort(key=self_seconds, reverse=True)
             lines.append(f"== top {top} operators by self time ==")
             for s in ops[:top]:
@@ -486,7 +525,9 @@ class TraceCollector:
     def to_chrome(self, pid: int = 1) -> dict:
         """Chrome trace-event JSON (the "Trace Event Format"), loadable in
         Perfetto / chrome://tracing: one complete ("ph": "X") event per
-        span, ts/dur in microseconds, one tid per query trace."""
+        span, ts/dur in microseconds, one tid per query trace. ``ts`` is on
+        the profiler's clock, so the export lies over a ``torch.profiler``
+        export of the same run."""
         events = []
         for tid, qt in enumerate(self.traces):
             events.append({"name": "thread_name", "ph": "M", "pid": pid,
@@ -494,7 +535,8 @@ class TraceCollector:
             for s in qt.spans:
                 events.append({
                     "name": s.name, "cat": s.cat, "ph": "X", "pid": pid,
-                    "tid": tid, "ts": s.ts * 1e6, "dur": s.dur * 1e6,
+                    "tid": tid, "ts": qt.t0_ns / 1e3 + s.ts * 1e6,
+                    "dur": s.dur * 1e6,
                     "args": {**s.args,
                              **({"detail": s.detail} if s.detail else {})},
                 })
@@ -646,33 +688,6 @@ def fence(value) -> float:
         import torch
         torch.cuda.synchronize()
     return time.perf_counter() - t0
-
-
-def kernel_args(kind: str, inputs: tuple, out, iters: int = 1) -> dict:
-    """Analytic flops/bytes of one GCDA operator execution, derived from
-    runtime shapes (the flop model lives with the kernels in
-    ``analytics.flops_estimate``) — the span payload
-    ``roofline.from_trace()`` reads."""
-    from . import analytics
-
-    def shape(v):
-        return tuple(int(d) for d in getattr(v, "shape", ()) or ())
-
-    def nbytes(v):
-        n = getattr(v, "nbytes", None)
-        return int(n) if n is not None else 0
-
-    args: dict[str, Any] = {}
-    shapes = [shape(v) for v in inputs]
-    flops = analytics.flops_estimate(kind, shapes, iters=iters)
-    if flops:
-        args["flops"] = flops
-    total_bytes = sum(nbytes(v) for v in inputs) + nbytes(out)
-    if total_bytes:
-        args["bytes"] = total_bytes
-    if shapes:
-        args["in_shapes"] = [list(s) for s in shapes]
-    return args
 
 
 # ---------------------------------------------------------------------------

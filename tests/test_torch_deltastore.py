@@ -657,3 +657,18 @@ def test_interbuffer_lru_and_eviction():
     assert port == ref
     assert port[0] == (1, 64) and port[1] == (True, True)
     assert port[2] == (True, True) and port[3][0] <= 2048 and port[3][1]
+
+
+def test_interbuffer_counts_oversize_puts():
+    """A put larger than the capacity is admitted and then dropped by its
+    own eviction, with every other entry: ``oversize`` counts it."""
+    buf = PORT.interbuffer.InterBuffer(capacity_bytes=2048, device="cpu")
+    buf.put("a", torch.ones(256))
+    assert buf.oversize == 0 and "oversize" not in buf.metrics()
+    assert "oversize" not in buf.counters()
+    buf.put("huge", torch.ones(4096))
+    assert len(buf) == 0 and buf.evictions == 2
+    assert buf.oversize == 1 and buf.metrics()["oversize"] == 1
+    assert "oversize=1" in buf.counters()
+    buf.put("b", torch.ones(256))
+    assert buf.oversize == 1 and len(buf) == 1

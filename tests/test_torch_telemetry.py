@@ -29,6 +29,12 @@ def _expected_shape(node, memo):
     return (node.kind, [_expected_shape(c, memo) for c in node.children])
 
 
+def _operator_spans(trace) -> list:
+    """A trace's spans less the port's engine phases, which the reference
+    does not record."""
+    return [s for s in trace.spans if not getattr(s, "phase", False)]
+
+
 @pytest.mark.parametrize("mode", ["gredo", "dual", "single"])
 def test_span_tree_matches_dag_shape(dbs, mode):
     def scenario(P):
@@ -36,7 +42,7 @@ def test_span_tree_matches_dag_shape(dbs, mode):
         eng.query(P.m2bench.q_g1())
         trace = eng.telemetry.last_trace()
         assert trace.shape() == [_expected_shape(eng.last_dag, set())]
-        return trace.shape(), [(s.name, s.cat) for s in trace.spans]
+        return trace.shape(), [(s.name, s.cat) for s in _operator_spans(trace)]
     ref, port = both(scenario)
     assert port == ref
 
@@ -72,7 +78,10 @@ def test_chrome_trace_round_trips_and_nests(dbs):
             for e in evs[1:]:
                 assert e["ts"] >= root["ts"] - 1e-6
                 assert e["ts"] + e["dur"] <= root["ts"] + root["dur"] + 0.5
-        return [(e["name"], e["tid"], e.get("cat")) for e in events]
+        # the port's engine phases lie inside the root too; the reference
+        # records none
+        return [(e["name"], e["tid"], e.get("cat")) for e in events
+                if not e["name"].startswith("engine.")]
     ref, port = both(scenario)
     assert port == ref and port
 
@@ -155,6 +164,22 @@ def test_per_query_interbuffer_delta(dbs):
     delta, misses, out = port
     assert delta["hits"] == 1 and delta["misses"] == 0 and misses > 0
     assert "interbuffer (this query)" in out and "(cumulative)" in out
+
+
+def test_oversize_outputs_show_in_explain_and_registry(dbs):
+    """An inter-buffer smaller than one output matrix: each analysis admits
+    its outputs and evicts them at once; ``explain_last`` and the registry
+    delta count the oversize puts."""
+    P = PORT
+    eng = P.Engine(dbs[P.name], telemetry=True, interbuffer_bytes=1024)
+    eng.analyze(P.m2bench.a3_multiply())
+    eng.analyze(P.m2bench.a3_multiply())
+    assert eng.last_registry_delta["interbuffer.oversize"] >= 1
+    assert eng.last_interbuffer_delta["hits"] == 0
+    assert eng.last_interbuffer_delta["oversize"] >= 1
+    out = eng.explain_last()
+    assert "oversize=+" in out and f"oversize={eng.interbuffer.oversize}" in out
+    assert len(eng.interbuffer) == 0
 
 
 def test_qerror_monitor_flags_misestimate():
@@ -344,3 +369,123 @@ def test_engine_openmetrics_end_to_end(dbs):
     assert port == ref
     assert "engine_queries_total 1" in port and "flight_records 1" in port
     assert any(line.startswith("health_status") for line in port)
+
+
+# --------------------------------------------------------------------------
+# The port's engine phase spans
+# --------------------------------------------------------------------------
+
+GCDI_PHASES = ["engine.telemetry", "engine.record", "engine.plan",
+               "engine.build", "engine.optimize", "engine.shard",
+               "engine.execute", "engine.record", "engine.telemetry",
+               "engine.record"]
+GCDA_PHASES = GCDI_PHASES[:6] + ["engine.estimate"] + GCDI_PHASES[6:]
+
+
+def _phases(trace):
+    return [s for s in trace.spans if s.phase]
+
+
+@pytest.mark.parametrize("task,cat,names", [
+    ("q_g3", "gcdi", GCDI_PHASES), ("a3_multiply", "gcda", GCDA_PHASES)])
+def test_phase_spans_tile_the_task(dbs, task, cat, names):
+    """In order, disjoint, inside the root; the operator spans lie inside
+    ``engine.execute``."""
+    P = PORT
+    eng = P.Engine(dbs[P.name], telemetry=True)
+    (eng.query if cat == "gcdi" else eng.analyze)(getattr(P.m2bench, task)())
+    trace = eng.telemetry.last_trace()
+    phases = _phases(trace)
+    assert [s.name for s in phases] == names
+    assert all(s.cat == cat and s.parent == 0 for s in phases)
+    root = trace.spans[0]
+    assert phases[0].ts >= root.ts
+    assert phases[-1].ts + phases[-1].dur == root.ts + root.dur
+    for a, b in zip(phases, phases[1:]):
+        assert a.dur >= 0 and a.ts + a.dur <= b.ts + 1e-12
+    execute = next(s for s in phases if s.name == "engine.execute")
+    ops = [s for s in _operator_spans(trace)[1:]]
+    assert ops and all(s.parent != -1 for s in ops)
+    for s in ops:
+        assert execute.ts <= s.ts and s.ts + s.dur <= execute.ts + execute.dur
+    # the Chrome export is on the profiler's clock: the same intervals,
+    # shifted by the origin
+    doc = eng.telemetry.collector.to_chrome()
+    tid = len(eng.telemetry.collector.traces) - 1
+    events = [e for e in doc["traceEvents"]
+              if e["ph"] == "X" and e["tid"] == tid]
+    assert len(events) == len(trace.spans)
+    for e, s in zip(events, trace.spans):
+        assert e["name"] == s.name
+        assert e["ts"] == pytest.approx(trace.t0_ns / 1e3 + s.ts * 1e6,
+                                         abs=1e-3)
+        assert e["dur"] == pytest.approx(s.dur * 1e6, abs=1e-3)
+
+
+@pytest.mark.parametrize("task", ["q_g3", "a3_multiply"])
+def test_phase_spans_leave_the_operator_views_as_they_were(dbs, task):
+    """``shape()``, ``render()`` and the flight recorder's tree show the
+    operator DAG alone: the same as the trace with its phases taken out,
+    and the same tree as the reference's."""
+    def scenario(P):
+        eng = P.Engine(dbs[P.name], telemetry=True)
+        run = eng.query if task.startswith("q_") else eng.analyze
+        run(getattr(P.m2bench, task)())
+        trace = eng.telemetry.last_trace()
+        flight = [(s["name"], s["parent"]) for s in eng.observer.ring[-1].spans]
+        if P is PORT:
+            bare = P.telemetry.QueryTrace(trace.label)
+            bare.spans = _operator_spans(trace)
+            assert trace.shape() == bare.shape()
+            assert trace.render(top=3) == bare.render(top=3)
+            assert flight == [(s.name, s.parent) for s in bare.spans]
+        tree = untimed(trace.render()).splitlines()
+        return trace.shape(), tree, [name for name, _ in flight]
+    ref, port = both(scenario)
+    assert port == ref
+
+
+def test_a_session_that_is_off_records_no_span(dbs, monkeypatch):
+    P = PORT
+    calls = []
+    for name in ("__init__", "begin", "phase", "close"):
+        orig = getattr(P.telemetry.QueryTrace, name)
+
+        def spy(self, *a, _orig=orig, _name=name, **kw):
+            calls.append(_name)
+            return _orig(self, *a, **kw)
+        monkeypatch.setattr(P.telemetry.QueryTrace, name, spy)
+    eng = P.Engine(dbs[P.name])
+    eng.query(P.m2bench.q_g3())
+    eng.analyze(P.m2bench.a3_multiply())
+    assert eng.telemetry is None and calls == []
+    assert eng.observer.ring[-1].spans == []
+    prof = eng.profile(P.m2bench.q_g1())        # a session on records them
+    assert "phase" in calls and _phases(prof.trace)
+
+
+def test_phase_spans_lie_on_the_profiler_clock(dbs):
+    """Under ``torch.profiler`` (on the CPU), every phase span's interval on
+    the profiler's clock lies inside a ``record_function`` range around the
+    call, within 1 ms."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    P = PORT
+    eng = P.Engine(dbs[P.name], telemetry=True)
+    eng.query(P.m2bench.q_g3())                       # warm
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("engine_call"):
+            eng.query(P.m2bench.q_g3())
+    trace = eng.telemetry.last_trace()
+    (mark,) = [e for e in prof.profiler.kineto_results.events()
+               if e.name() == "engine_call"]
+    lo, hi = mark.start_ns(), mark.start_ns() + mark.duration_ns()
+    slack = 1_000_000
+    assert _phases(trace)
+    for s in _phases(trace):
+        start = trace.t0_ns + s.ts * 1e9
+        end = start + s.dur * 1e9
+        assert lo - slack <= start <= end <= hi + slack, s.name
+    doc = json.loads(eng.telemetry.collector.to_chrome_json())
+    roots = [e for e in doc["traceEvents"]
+             if e["ph"] == "X" and e["name"] == "query"]
+    assert lo / 1e3 - 1e3 <= roots[-1]["ts"] <= hi / 1e3 + 1e3
