@@ -220,7 +220,8 @@ GNN_TOL = {"out": 1e-4, "loss": 1e-4, "grads": 1e-4}
 # vs CPU check of the molecule cell runs on the batch's first 8 graphs.
 MOLECULE_CHECK_GRAPHS = 8
 DCN_BATCH = 4096
-GCDIA_KERNELS = ("matmul", "cosine_sim", "logreg_grad", "batched_hop")
+GCDIA_KERNELS = ("matmul", "cosine_sim", "logreg_grad", "batched_hop",
+                 "matgen")
 # a_shard_reg regresses on four feature columns (m2bench.a_shard_reg)
 SHARD_FEATURES = 4
 DEVICE = "cuda"
@@ -1002,6 +1003,60 @@ def kernel_report(launches: dict, cap) -> list:
                                lambda: kernel(*args, **kw), plain, b,
                                library_ms, shape))
     return rows
+
+
+def g1_sf40_pairs(seed=40):
+    """G1's (Customer.id, t.tid) pairs at M2Bench SF 40, drawn as the
+    generator draws them: 80,000 customers, Poisson(8) interests clipped to
+    [1, 40] over 200 tags, of which the 40 food tags qualify (about 128K
+    pairs over about 63.9K customers)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.binomial(np.clip(rng.poisson(8, 80_000), 1, 40), 0.2)
+    order = rng.permutation(int(lens.sum()))     # joins emit no id order
+    return (np.repeat(np.arange(80_000, dtype=np.int64), lens)[order],
+            rng.integers(0, 40, len(order)))
+
+
+def matgen_rows(launches: dict) -> list:
+    """The matgen row at A2's shape at SF 40 (``g1_sf40_pairs``, d = 200),
+    beside the numpy path it replaced (host matrix, pageable copy), and the
+    host's ranking of its ids beside ``np.unique``'s."""
+    import numpy as np
+    import torch
+    from repro_torch.core import analytics
+    from repro_torch.core.storage import Table
+    from repro_torch.kernels.matgen.matgen import rank
+    from repro_torch.kernels.matgen.ref import matgen_ref
+    rows, vals = g1_sf40_pairs()
+    d, dev = 200, torch.device(DEVICE)
+    gen = wrapper("matgen")
+    mat, groups = gen(rows, vals, d, device=dev)
+    rows_t, vals_t = (torch.as_tensor(a, device=dev) for a in (rows, vals))
+    want, want_groups = matgen_ref(rows_t, vals_t, d)
+    err = max(assert_equal("matgen matrix", mat, want),
+              assert_equal("matgen group ids", groups, want_groups.cpu()))
+    table = Table("G1", {"g": rows, "v": vals})
+    host, _ = analytics.random_access_matrix(table, "g", "v", d,
+                                             device="cpu")
+    assert_equal("matgen vs the numpy path", mat.cpu(), host)
+    n_rows = mat.shape[0]
+    b = bound_ms(4 * n_rows * d + 16 * len(rows), 0.0, "float32")
+    row = report_row(
+        "matgen", "matgen", launches["matgen"], err,
+        lambda: gen(rows, vals, d, device=dev),
+        lambda: matgen_ref(rows_t, vals_t, d), b, None,
+        f"{len(rows)} pairs -> {n_rows}x{d}")
+    row["numpy_path_ms"] = time_ms(lambda: analytics.random_access_matrix(
+        table, "g", "v", d, device="cpu")[0].to(dev))[0]
+    say(f"matgen: the numpy path it replaced {row['numpy_path_ms']:.4f} ms")
+    # the host's ranking of these dense ids, and np.unique's in its place
+    row["rank_ms"] = wall_ms(lambda: rank(rows), 50)
+    row["np_unique_ms"] = wall_ms(
+        lambda: np.unique(rows, return_inverse=True), 50)
+    say(f"matgen: ids ranked by counting {row['rank_ms']:.4f} ms, by "
+        f"np.unique {row['np_unique_ms']:.4f} ms")
+    return [row]
 
 
 def report_row(row_name, name, launches, err, run, plain, b, library_ms,
@@ -3044,7 +3099,7 @@ def main() -> int:
     launches, cap, db = phase_main()
     phase_declarative(db)
     del db
-    rows = kernel_report(launches, cap)
+    rows = kernel_report(launches, cap) + matgen_rows(launches)
     rows += flash_rows(phase_serve())
     rows += flash_rows(phase_moe_serve(), MOE_ARCH)
     phase_train()

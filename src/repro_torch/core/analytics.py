@@ -3,7 +3,8 @@
 * Matrix generation: ``rel2matrix`` (local access — columnar reads, no
   tuple-at-a-time scan) and ``random_access_matrix`` (aggregate multi-valued
   attributes from qualifying records into multi-hot / count features). Both
-  return float32 tensors on the requested device.
+  return float32 tensors on the requested device; on the card, random
+  access stages only its pairs and the ``matgen`` kernel builds the matrix.
 * Analytical operators: MULTIPLY / SIMILARITY / REGRESSION, block-tiled
   CUDA kernels on the card (their plain PyTorch versions on the CPU). With
   a mesh (a ``DeviceMesh`` with axes 'data' and 'model' over the current
@@ -23,6 +24,7 @@ import torch
 
 from ..kernels.cosine_sim.ops import cosine_sim as _cosine_op
 from ..kernels.logreg.ops import logreg_grad as _logreg_op
+from ..kernels.matgen.ops import matgen as _matgen_op
 from ..kernels.matmul.ops import matmul as _matmul_op
 from .storage import DictColumn, RaggedColumn, Table
 
@@ -90,6 +92,17 @@ def rel2matrix_sharded(table: Table, columns: Sequence[str], k: int,
     return mat, spec
 
 
+def random_access_pairs(table: Table, group_col: str, value_col: str
+                        ) -> tuple[np.ndarray, np.ndarray]:
+    """The (group id, value) pairs of random access: one per record, or one
+    per element of a multi-valued ``value_col``."""
+    groups = np.asarray(table.col(group_col))
+    vcol = table.col(value_col)
+    if isinstance(vcol, RaggedColumn):
+        return np.repeat(groups, vcol.lengths()), np.asarray(vcol.values)
+    return groups, np.asarray(vcol)
+
+
 def random_access_matrix(table: Table, group_col: str, value_col: str,
                          n_features: int, mode: str = "multi_hot",
                          device: "torch.device | str" = "cuda"
@@ -97,15 +110,13 @@ def random_access_matrix(table: Table, group_col: str, value_col: str,
     """Random access — aggregate (multi-valued) attributes of qualifying
     records into per-group feature rows. Returns (matrix, group_ids): row i
     holds the multi-hot / count vector of ``value_col`` over group i, as a
-    float32 tensor on ``device``."""
-    groups = np.asarray(table.col(group_col))
-    vcol = table.col(value_col)
-    if isinstance(vcol, RaggedColumn):
-        rows = np.repeat(groups, vcol.lengths())
-        vals = np.asarray(vcol.values)
-    else:
-        rows = groups
-        vals = np.asarray(vcol)
+    float32 tensor on ``device``. On a CUDA device the card builds the
+    matrix from the pairs (``kernels/matgen``); elsewhere numpy does, as
+    the reference. Either way the host ranks the group ids."""
+    rows, vals = random_access_pairs(table, group_col, value_col)
+    if torch.device(device).type == "cuda":
+        mat, groups = _matgen_op(rows, vals, n_features, mode, device=device)
+        return mat, groups.numpy()
     uniq, row_idx = np.unique(rows, return_inverse=True)
     mat = np.zeros((len(uniq), n_features), dtype=np.float32)
     ok = (vals >= 0) & (vals < n_features)

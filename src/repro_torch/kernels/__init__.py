@@ -14,7 +14,8 @@ from typing import NamedTuple
 class Kernel(NamedTuple):
     wrapper: str      # module of the wrapper (a function named as the kernel)
     source: str       # its CUDA source, from the repository root
-    replaces: str     # the reference's Pallas kernel (file:line of the call)
+    replaces: str     # the reference's Pallas kernel or host function it
+                      # takes the place of (file:line)
 
 
 KERNELS = {
@@ -37,6 +38,9 @@ KERNELS = {
     "embedding_bag": Kernel(f"{__name__}.embedding_bag.embedding_bag",
                             "src/repro_torch/csrc/embedding_bag.cu",
                             "src/repro/kernels/embedding_bag/embedding_bag.py:56"),
+    "matgen": Kernel(f"{__name__}.matgen.matgen",
+                     "src/repro_torch/csrc/matgen.cu",
+                     "src/repro/core/analytics.py:98"),
 }
 
 

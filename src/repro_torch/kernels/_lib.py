@@ -41,6 +41,7 @@ _SIGNATURES: dict[str, tuple[list, object]] = {
     "gredo_flash_f32": ([_P] * 6 + [_I] * 9 + [_F] + [_L] * 12 + [_P], _I),
     "gredo_flash_bf16": ([_P] * 6 + [_I] * 9 + [_F] + [_L] * 12 + [_P], _I),
     "gredo_embedding_bag": ([_P] * 4 + [_I] * 10 + [_P], _I),
+    "gredo_matgen_scatter": ([_P, _P, _L, _P, _L, _I, _I, _P], _I),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -27,6 +27,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.logreg.ref import logreg_grad_ref
 from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.kernels.traversal import ref as tref
+from torch_matgen_cases import (G1_SF40, KINDS, LAYOUTS, MODES, WIDTHS,
+                                case_table)
 
 pytestmark = pytest.mark.gpu
 RNG = np.random.default_rng(42)
@@ -570,6 +572,38 @@ def test_wrappers_reject_inputs_they_do_not_take(cuda):
         hop(rp, ci, ei, fr, fm[:1], mem, ep, ca, **kw)
     with pytest.raises(ValueError, match="CUDA"):
         hop(rp.cpu(), ci, ei, fr, fm, mem, ep, ca, **kw)
+    gen = kernel("matgen")
+    ids = np.arange(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        gen(ids, ids, 4, device="cpu")
+    with pytest.raises(TypeError):              # float group ids
+        gen(ids.astype(np.float64), ids, 4, device=cuda)
+    with pytest.raises(ValueError):             # pairs of unequal length
+        gen(ids, ids[:3], 4, device=cuda)
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("kind", KINDS + (G1_SF40,))
+def test_matgen_kernel_matches_numpy(cuda, kind, layout, mode, d):
+    """The card's random-access matrix equals the numpy path's (which
+    ``test_torch_kernels.py`` holds to the JAX package on these cases) bit
+    for bit, with the same group ids; a call with pairs launches."""
+    from repro_torch.core import analytics
+    t = case_table(kind, layout)
+    want, want_groups = analytics.random_access_matrix(t, "g", "v", d, mode,
+                                                       device="cpu")
+    pairs = len(analytics.random_access_pairs(t, "g", "v")[0])
+    before = launch_counts()["matgen"]
+    got, groups = analytics.random_access_matrix(t, "g", "v", d, mode,
+                                                 device=cuda)
+    assert launch_counts()["matgen"] == before + (pairs > 0)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert got.shape == want.shape
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert groups.dtype == want_groups.dtype
+    np.testing.assert_array_equal(groups, want_groups)
 
 
 def test_engine_on_card_matches_cpu_and_launches_every_kernel(cuda):
@@ -599,7 +633,7 @@ def test_engine_on_card_matches_cpu_and_launches_every_kernel(cuda):
     w_p, loss_p = analytics.regression(X.cpu(), y.cpu(), iters=20)
     torch.testing.assert_close(w.cpu(), w_p, rtol=3e-4, atol=3e-5)
     after = launch_counts()
-    gcdia = ("matmul", "cosine_sim", "logreg_grad", "batched_hop")
+    gcdia = ("matmul", "cosine_sim", "logreg_grad", "batched_hop", "matgen")
     assert all(after[k] > before[k] for k in gcdia), (before, after)
 
 

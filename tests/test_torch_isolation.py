@@ -42,25 +42,38 @@ def test_no_jax_or_reference_imports(path):
 
 def test_kernel_paths_call_no_library_kernel():
     """The wrappers and CUDA sources launch only the hand-written kernels;
-    library calls belong to the plain versions (ref.py) alone."""
+    library calls belong to the plain versions (ref.py) alone. Each kernel
+    of ``KERNELS`` has one wrapper and one source, and the source names the
+    Pallas kernel, or the reference's host function, that it replaces."""
+    from repro_torch.kernels import KERNELS
     banned_attrs = {"matmul", "mm", "bmm", "compile", "linear", "einsum",
                     "scaled_dot_product_attention", "embedding_bag"}
-    wrappers = [p for p in PORT.joinpath("kernels").rglob("*.py")
-                if p.name not in ("ref.py", "ops.py", "__init__.py")]
-    assert len(wrappers) == 7           # _lib.py + six kernel wrappers
+    wrappers = sorted(p for p in PORT.joinpath("kernels").rglob("*.py")
+                      if p.name not in ("ref.py", "ops.py", "__init__.py"))
+    assert wrappers == sorted(      # _lib.py + one wrapper per kernel
+        [PORT / "kernels" / "_lib.py"]
+        + [ROOT / "src" / (k.wrapper.replace(".", "/") + ".py")
+           for k in KERNELS.values()])
     for p in wrappers:
         for node in ast.walk(ast.parse(p.read_text())):
             assert not (isinstance(node, ast.BinOp)
                         and isinstance(node.op, ast.MatMult)), p.name
             assert not (isinstance(node, ast.Attribute)
                         and node.attr in banned_attrs), (p.name, node.attr)
-    sources = list(PORT.joinpath("csrc").glob("*.cu*"))
-    assert len(sources) == 7            # six .cu files and gemm.cuh
+    sources = sorted(PORT.joinpath("csrc").glob("*.cu*"))
+    assert [p for p in sources if p.suffix == ".cu"] == sorted(
+        ROOT / k.source for k in KERNELS.values())   # one .cu per kernel
+    assert [p.name for p in sources if p.suffix != ".cu"] == ["gemm.cuh"]
     for p in sources:
         text = p.read_text().lower()
         assert "cublas" not in text and "cudnn" not in text, p.name
-        if p.suffix == ".cu":     # each names the TPU kernel it replaces
-            assert "replaces the pallas kernel" in text, p.name
+    for k in KERNELS.values():      # each names what it replaces
+        replaced = k.replaces.split(":")[0]
+        assert (ROOT / replaced).is_file(), k
+        what = ("pallas kernel" if replaced.startswith("src/repro/kernels/")
+                else "reference's host function")
+        assert f"replaces the {what}" in (ROOT / k.source).read_text().lower(), \
+            k.source
 
 
 def test_port_states_no_tpu_figures():

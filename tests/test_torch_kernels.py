@@ -1,4 +1,6 @@
-"""The port's six kernels, held against the JAX package's Pallas kernels.
+"""The port's kernels: six held against the JAX package's Pallas kernels,
+and random-access matrix generation (``matgen``) held against the JAX
+package's host function ``random_access_matrix``, bit for bit.
 
 The same numpy inputs, made from a seed, go through the Pallas kernel in
 interpret mode (as ``tests/test_kernels.py`` and
@@ -14,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import analytics as jax_analytics
+from repro.core import storage as jax_storage
 from repro.kernels.cosine_sim.cosine_sim import cosine_sim as jax_cosine
 from repro.kernels.embedding_bag.embedding_bag import \
     embedding_bag as jax_bag
@@ -35,10 +39,18 @@ from repro_torch.kernels.flash_attention.ref import (
     flash_attention_ref, flash_attention_split_ref)
 from repro_torch.kernels.logreg.ops import logreg_grad
 from repro_torch.kernels.logreg.ref import logreg_grad_ref
+from repro_torch.kernels.matgen.matgen import rank
+from repro_torch.kernels.matgen.ops import matgen
+from repro_torch.kernels.matgen.ref import matgen_ref
 from repro_torch.kernels.matmul.ops import matmul
 from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.kernels.traversal import ops as tops
 from repro_torch.kernels.traversal import ref as tref
+
+from repro_torch.core import analytics
+from repro_torch.core.storage import RaggedColumn
+from torch_matgen_cases import (G1_SF40, KINDS, LAYOUTS, MODES, WIDTHS,
+                                case_table)
 
 RNG = np.random.default_rng(42)
 T = torch.as_tensor
@@ -528,10 +540,12 @@ def _dispatch_cases():
          lambda: flash_attention_ref(q, kv, kv, lens)),
         ("embedding_bag", lambda **k: embedding_bag(x, idx, wb, **k),
          lambda: embedding_bag_ref(x, idx, wb)),
+        ("matgen", lambda **k: matgen(idx[0], idx[1], 4, **k),
+         lambda: matgen_ref(idx[0], idx[1], 4)),
     ]
 
 
-@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("case", range(7))
 def test_cpu_tensor_takes_plain_version_and_never_launches(case):
     name, call, plain = _dispatch_cases()[case]
     before = launch_counts()
@@ -545,8 +559,76 @@ def test_cpu_tensor_takes_plain_version_and_never_launches(case):
     assert launch_counts() == before
 
 
-@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("case", range(7))
 def test_use_kernel_true_on_cpu_tensor_raises(case):
     name, call, _ = _dispatch_cases()[case]
     with pytest.raises(ValueError, match="CUDA"):
         call(use_kernel=True)
+
+
+_RANK_IDS = {
+    "dense": np.random.default_rng(1).integers(-20, 100, 300),
+    "dense_unsigned": np.random.default_rng(3).integers(0, 250, 300),
+    "sparse": np.random.default_rng(2).integers(0, 50, 300) * 1_000_003,
+    "one_id": np.full(7, 42),
+    "empty": np.zeros(0, dtype=np.int64),
+    "int8_full_range": np.tile(np.arange(-128, 128), 2)[::-3],
+    "int64_ends": np.array([-2**63, 2**63 - 1, -2**63]),
+    "int64_top": np.array([2**63 - 1, 2**63 - 3, 2**63 - 1] * 3),
+    "uint64_top": np.array([2**64 - 1, 2**64 - 5, 2**64 - 1] * 3,
+                           dtype=np.uint64),
+}
+# each set of ids in every integer type that holds it
+_RANK_CASES = [(ids, dt) for ids, rows in sorted(_RANK_IDS.items())
+               for dt in ("int8", "int32", "int64", "uint8", "uint32",
+                          "uint64")
+               if not rows.size or (np.iinfo(dt).min <= rows.min()
+                                    and rows.max() <= np.iinfo(dt).max)]
+
+
+@pytest.mark.parametrize("ids,dtype", _RANK_CASES)
+def test_matgen_rank_matches_np_unique(ids, dtype):
+    """The host's ranking of group ids, by counting where they span few
+    slots a pair and by sorting otherwise, gives what ``np.unique`` (the
+    reference's ranking) gives: ids, dtype and each pair's index."""
+    rows = _RANK_IDS[ids].astype(dtype)
+    want_ids, want_idx = np.unique(rows, return_inverse=True)
+    got_ids, got_idx = rank(rows)
+    assert got_ids.dtype == want_ids.dtype
+    assert got_idx.dtype == want_idx.dtype
+    np.testing.assert_array_equal(got_ids, want_ids)
+    np.testing.assert_array_equal(got_idx, want_idx)
+
+
+def _jax_table(t):
+    """The JAX package's Table of the port's Table ``t``: the same arrays."""
+    return jax_storage.Table(t.name, {
+        name: (jax_storage.RaggedColumn(values=c.values, offsets=c.offsets)
+               if isinstance(c, RaggedColumn) else c)
+        for name, c in t.columns.items()})
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("kind", KINDS + (G1_SF40,))
+def test_matgen_plain_and_dispatch_match_numpy(kind, layout, mode, d):
+    """The port's numpy path, the plain version and the CPU dispatch give
+    the JAX package's matrix bit for bit and its group ids (values and
+    dtype), and launch nothing."""
+    t = case_table(kind, layout)
+    ref_mat, want_groups = jax_analytics.random_access_matrix(
+        _jax_table(t), "g", "v", d, mode)
+    want = torch.from_numpy(np.array(ref_mat))
+    rows, vals = (T(a) for a in analytics.random_access_pairs(t, "g", "v"))
+    before = launch_counts()["matgen"]
+    got = matgen(rows, vals, d, mode)
+    host, host_groups = analytics.random_access_matrix(t, "g", "v", d, mode,
+                                                       device="cpu")
+    for mat, groups in ((host, T(host_groups)),
+                        matgen_ref(rows, vals, d, mode), got):
+        assert mat.dtype == torch.float32 and mat.shape == want.shape
+        assert torch.equal(mat.view(torch.int32), want.view(torch.int32))
+        assert groups.numpy().dtype == want_groups.dtype
+        np.testing.assert_array_equal(groups.numpy(), want_groups)
+    assert launch_counts()["matgen"] == before
