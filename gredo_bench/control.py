@@ -1,10 +1,14 @@
 """The control: the plain reference put in the program's place, one step
 below what the configuration states, which the check must refuse.
 
+Each task's kind (``kinds/<kind>.py``) gives its control's answer:
+
 * GCDIA outputs: float32 with TF32 off is stated, so the control computes
   them with every product input rounded to TF32 (float32 sums).
 * GCDI relations state no precision but bag semantics, so the control
   answers with duplicate rows collapsed (set semantics).
+* Shortest paths follow the edges in their direction, so the control reads
+  every edge both ways.
 
     python3 gredo_bench/control.py --workload <cell> --seeds 1,2,3 \\
         --seconds 5 [--program 1]
@@ -25,23 +29,22 @@ class Control:
     reference in the control's precision and semantics."""
 
     def __init__(self, prog, data: dict, cell):
-        from gredo_bench import reference
-        self.ref = reference
         self.data = data
         self.cell = cell
         self.device = prog.eng.device
         self.writes: list = []
+        self.args: dict = {}
 
     def write(self, graph, rows):
         self.writes.append((graph, rows))
 
+    def stage(self, name: str, args: tuple):
+        self.args[name] = args
+
     def run(self, name: str, i: int):
-        t = self.cell.tasks[name]
-        if t["kind"] == "gcdi":
-            return self.ref.evaluate(t["spec"], self.data, self.writes,
-                                     bag=False)
-        mats = self.ref.gcda_inputs(t, t["spec"], self.data, self.writes)
-        return self.ref.control_output(t, mats, self.device)
+        return self.cell.kind(name).control(
+            self.cell.tasks[name], self.data, self.writes,
+            self.args.get(name), self.device)
 
 
 def main(argv=None) -> int:

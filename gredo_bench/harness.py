@@ -2,14 +2,16 @@
 
 Everything a cell needs is found by name: its configuration
 (``configs/<config>.json``), its traffic mix (``traffic/<mix>.json``), the
-tasks the mix names (``queries/<task>.sql`` for a GCDI query in SQL/PGQ,
-``queries/<task>.json`` for a GCDIA over one of them) and its per-layer
-metrics (``metrics/<metric>.py``). This module is the only one of the
+tasks the mix names (``queries/<task>.sql`` or ``queries/<task>.json``),
+the kind of each task (``kinds/<kind>.py``) and its per-layer metrics
+(``metrics/<metric>.py``). A kind says how a task is loaded, called, drawn
+and checked (see ``kinds/gcdi.py``). This module is the only one of the
 benchmark that touches the program (``repro_torch``), and only in
 :class:`Program`.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import importlib.util
 import json
@@ -17,8 +19,7 @@ import math
 import sys
 import time
 from pathlib import Path
-
-import numpy as np
+from types import SimpleNamespace
 
 from . import datagen, reference, stats, trace as trace_mod
 from . import traffic as traffic_mod
@@ -26,6 +27,9 @@ from . import traffic as traffic_mod
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+# the kind of a task whose file names none, by the file's suffix
+KIND_OF_SUFFIX = {".sql": "gcdi", ".json": "gcda"}
+table_rows = reference.table_rows      # the name the tests know it by
 
 
 # ---------------------------------------------------------------------------
@@ -33,25 +37,46 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 # ---------------------------------------------------------------------------
 
 
+def load_module(root: Path, folder: str, name: str):
+    spec = importlib.util.spec_from_file_location(
+        f"gredo_bench.{folder}.{name}", root / folder / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_kind(root: Path, kind: str):
+    """The module ``kinds/<kind>.py``. It gives ``FAMILY``, the prefix of
+    its tasks' end-to-end metrics; ``load(body, find)``, the task from its
+    file (``find(name)`` loads another task); ``bind(api, task)``, the call
+    through the program's public entry points (``api.engine``,
+    ``api.parse``, ``api.schema``), which takes the drawn arguments;
+    ``check(task, kept, run)``, ``(number, value, limit)`` over the kept
+    ``(index, answer)`` pairs, where ``run`` holds ``data``,
+    ``writes_upto``, ``seed`` and ``device``; and ``control(task, data,
+    writes, args, device)``, the control's answer. Where it needs them:
+    ``args(task, data, seed, i)``, task ``i``'s arguments, drawn before its
+    clock starts; ``record(task, prog)``, fields of a traced task's
+    record."""
+    return load_module(root, "kinds", kind)
+
+
 def load_task(root: Path, name: str) -> dict:
+    """Task ``name`` as its kind loads it, with its ``name`` and ``kind``.
+    A ``.sql`` file holds the text alone; a ``.json`` file may name its
+    kind under ``"kind"``."""
     sql = root / "queries" / f"{name}.sql"
-    if sql.exists():
-        text = " ".join(sql.read_text().split())
-        return {"name": name, "kind": "gcdi", "text": text,
-                "spec": reference.parse(text)}
-    task = json.loads((root / "queries" / f"{name}.json").read_text())
-    integ = load_task(root, task["integration"])
-    return {**task, "name": name, "kind": "gcda", "text": integ["text"],
-            "spec": integ["spec"]}
+    path = sql if sql.exists() else root / "queries" / f"{name}.json"
+    body = ({"text": path.read_text()} if path.suffix == ".sql"
+            else json.loads(path.read_text()))
+    kind = body.get("kind", KIND_OF_SUFFIX[path.suffix])
+    task = load_kind(root, kind).load(body,
+                                      functools.partial(load_task, root))
+    return {**task, "name": name, "kind": kind}
 
 
 def load_reader(root: Path, metric: str):
-    path = root / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"gredo_bench.metrics.{metric}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_module(root, "metrics", metric).read
 
 
 class Cell:
@@ -78,7 +103,18 @@ class Cell:
                           and m["moves"] in moved]
         self.readers = {m["name"]: load_reader(root, m["name"])
                         for m in self.per_layer}
-        self.kinds = {t["kind"] for t in self.tasks.values()}
+        self.kinds = {k: load_kind(root, k)
+                      for k in {t["kind"] for t in self.tasks.values()}}
+        families = {k.FAMILY for k in self.kinds.values()}
+        if len(families) != 1:
+            # the end-to-end metrics are named by the family: a cell of two
+            # would report one family's and drop the other's
+            raise ValueError(f"{name}: tasks of families {sorted(families)}"
+                             "; a cell holds one")
+        self.family = families.pop()
+
+    def kind(self, task: str):
+        return self.kinds[self.tasks[task]["kind"]]
 
 
 # ---------------------------------------------------------------------------
@@ -88,14 +124,14 @@ class Cell:
 
 class Program:
     """The port's engine over the generated data, driven through its public
-    entry points: ``sqlpgq.parse`` and ``GredoEngine.query`` for GCDI,
-    ``GredoEngine.analyze`` for a GCDIA, ``Graph.insert_edges`` for writes."""
+    entry points: each task through the call its kind binds (given the
+    engine, ``sqlpgq.parse`` and ``core.schema``), ``Graph.insert_edges``
+    for writes."""
 
     def __init__(self, cell: Cell, data: dict, device, telemetry: bool):
-        from repro_torch.core import storage
+        from repro_torch.core import schema, storage
         from repro_torch.core.deltastore import DeltaConfig
         from repro_torch.core.engine import GredoEngine
-        from repro_torch.core.schema import AnalyticsTask, GCDIATask
         from repro_torch.core.sqlpgq import parse
         from repro_torch.kernels import launch_counts
         eng_cfg = cell.config["engine"]
@@ -107,21 +143,17 @@ class Program:
                                interbuffer_bytes=eng_cfg["interbuffer_bytes"],
                                telemetry=telemetry, device=device)
         self._launches = launch_counts
-        self._calls = {}
-        for name, t in cell.tasks.items():
-            if t["kind"] == "gcdi":
-                self._calls[name] = (lambda text=t["text"]:
-                                     self.eng.query(parse(text)))
-            else:
-                inputs = [tuple(x) for x in t["inputs"]]
-                self._calls[name] = (
-                    lambda text=t["text"], op=t["op"], inputs=inputs,
-                    iters=t.get("iters", 100): self.eng.analyze(
-                        GCDIATask(parse(text), AnalyticsTask(op, inputs)),
-                        iters=iters))
+        api = SimpleNamespace(engine=self.eng, parse=parse, schema=schema)
+        self._bound = {name: cell.kind(name).bind(api, t)
+                       for name, t in cell.tasks.items()}
+        self._calls = dict(self._bound)
 
     def write(self, graph: str, rows: dict) -> None:
         self.db.graphs[graph].insert_edges(rows)
+
+    def stage(self, name: str, args: tuple) -> None:
+        """Hand task ``name``'s next call its drawn arguments."""
+        self._calls[name] = functools.partial(self._bound[name], *args)
 
     def run(self, name: str):
         return self._calls[name]()
@@ -129,7 +161,16 @@ class Program:
     def hops(self) -> int:
         return self._launches()["batched_hop"]
 
-    def executed_ops(self) -> list:
+    def last_trace(self):
+        """The engine's newest trace: compared before and after a task, it
+        tells whether the task began one."""
+        return self.eng.telemetry.collector.last()
+
+    def executed_ops(self, before=None) -> list:
+        """(operator kind, seconds) of the last task's executed operators;
+        none where the task began no trace after ``before``."""
+        if self.last_trace() is before:
+            return []
         return [(o["op"], o["seconds"]) for o in self.eng.last_stats.operators
                 if o["executed"]]
 
@@ -139,25 +180,15 @@ class Program:
                 return o["rows"]
         return None
 
-    def spans(self) -> list:
+    def spans(self, before=None) -> list:
         """(start, end, operator kind) of the last task's operator spans on
-        the harness's clock."""
-        tr = self.eng.telemetry.collector.last()
+        the harness's clock; none where the task began no trace after
+        ``before``."""
+        tr = self.last_trace()
+        if tr is before:
+            return []
         return [(tr.t0 + s.ts, tr.t0 + s.ts + s.dur, s.name)
                 for s in tr.spans if s.cat in ("gcdi", "gcda")]
-
-
-def table_rows(out, select: list) -> list:
-    """The program's result relation as plain columns, in SELECT order (an
-    answer already in that form passes as it is)."""
-    if isinstance(out, list):
-        return out
-    cols = []
-    for ref in select:
-        c = out.col(ref)
-        cols.append(c.decode(c.codes) if hasattr(c, "codes")
-                    else np.asarray(c))
-    return cols
 
 
 # ---------------------------------------------------------------------------
@@ -211,35 +242,16 @@ def to_host(out, into=None):
 def check(cell: Cell, data: dict, traffic, sample: Sample, failed: int,
           device) -> dict:
     """Every number compared, ``{name: (value, limit)}``: the failed tasks,
-    and per task of the mix the number its file names (relations: rows
-    mismatched, exact) over the sampled answers, worked out again by the
-    reference from the data and the writes up to each answer."""
+    and per task of the mix the number its kind compares over the sampled
+    answers, worked out again by the reference from the data, the writes
+    up to each answer and the arguments drawn for it."""
     out = {"tasks_failed": (failed, 0)}
-    prec = reference.Precision(False, device)
-    inputs: dict = {}      # one integration per task and count of writes
+    run = SimpleNamespace(data=data, writes_upto=traffic.writes_upto,
+                          seed=traffic.seed, device=device)
     for name in cell.mix["tasks"]:
-        t = cell.tasks[name]
-        kept = sample.kept.get(name, [])
-        if t["kind"] == "gcdi":
-            worst = 0
-            for i, got in kept:
-                want = reference.evaluate(t["spec"], data,
-                                          traffic.writes_upto(i))
-                worst += reference.rows_mismatched(
-                    table_rows(got, t["spec"]["select"]), want)
-            out[f"{name}.rows_mismatched"] = (worst, 0)
-            continue
-        number = t["check"]["number"]
-        worst = 0.0
-        for i, got in kept:
-            done = traffic.writes_upto(i)
-            key = (name, len(done))
-            if key not in inputs:
-                inputs[key] = reference.gcda_inputs(t, t["spec"], data, done)
-            v = reference.compare_gcda(t, got, inputs[key], prec)
-            worst = v + worst if number == "entries_mismatched" \
-                else max(worst, v)
-        out[f"{name}.{number}"] = (worst, t["check"]["limit"])
+        number, value, limit = cell.kind(name).check(
+            cell.tasks[name], sample.kept.get(name, []), run)
+        out[f"{name}.{number}"] = (value, limit)
     # a task of the mix with no answer in the sample would pass unchecked
     out["tasks_unchecked"] = (sum(not sample.kept.get(n)
                                   for n in cell.mix["tasks"]), 0)
@@ -276,19 +288,24 @@ class Executor:
     def write(self, graph, rows):
         self.prog.write(graph, rows)
 
+    def stage(self, name: str, args: tuple):
+        self.prog.stage(name, args)
+
     def run(self, name: str, i: int):
         return self.prog.run(name)
 
 
 def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
         device="cuda", t_start: float | None = None, bench: dict | None = None,
-        scale: dict | None = None, executor=None, quiet: bool = False) -> dict:
+        scale: dict | None = None, executor=None, quiet: bool = False,
+        root: Path = HERE) -> dict:
     """One run; returns the result line's object. ``scale`` overrides keys
-    of the configuration's scale (tests only); ``executor`` wraps the
-    program (the control and the fault tests)."""
+    of the configuration's scale and ``root`` is a copy of this folder
+    (tests only); ``executor`` wraps the program (the control and the fault
+    tests)."""
     import torch
     t_start = time.perf_counter() if t_start is None else t_start
-    cell = Cell(cell_name, bench)
+    cell = Cell(cell_name, bench, root)
     if scale:
         cell.config["scale"].update(scale)
     data = datagen.generate(cell.config, seed)
@@ -299,9 +316,15 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
     if is_cuda:
         torch.cuda.reset_peak_memory_stats()
 
+    # the kinds that draw arguments per task draw them off the task's clock
+    draws = {name: cell.kind(name).args for name in cell.tasks
+             if hasattr(cell.kind(name), "args")}
+
     def one(i: int):
         name = traffic.task(i)
         w = traffic.write(i)
+        if name in draws:
+            ex.stage(name, draws[name](cell.tasks[name], data, seed, i))
         t0 = time.perf_counter()
         if w:
             ex.write(*w)
@@ -340,6 +363,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
         if mark:
             mark.__enter__()
         hops0 = prog.hops() if trace else 0
+        trace0 = prog.last_trace() if trace else None
         try:
             name, out, t0, t1, t2 = one(i)
             ok = True
@@ -361,15 +385,14 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
                 pause.__exit__(None, None, None)
             paused += time.perf_counter() - p0
         if trace:
-            rec = {"name": name, "kind": cell.tasks[name]["kind"],
-                   "t0": t0, "wall_s": t2 - t0, "write_s": t1 - t0,
-                   "ops": prog.executed_ops() if ok else [],
-                   "hops": prog.hops() - hops0,
-                   "spans": prog.spans() if ok else []}
             t = cell.tasks[name]
-            if t["kind"] == "gcda":
-                rec.update(n=prog.rows_of("RandomAccessMatrix"),
-                           d=t["inputs"][0][3], iters=t.get("iters", 1))
+            rec = {"name": name, "kind": cell.family, "task_kind": t["kind"],
+                   "t0": t0, "wall_s": t2 - t0, "write_s": t1 - t0,
+                   "ops": prog.executed_ops(trace0) if ok else [],
+                   "hops": prog.hops() - hops0,
+                   "spans": prog.spans(trace0) if ok else []}
+            if hasattr(cell.kind(name), "record"):
+                rec.update(cell.kind(name).record(t, prog))
             recs.append(rec)
         del out
         i += 1
@@ -396,9 +419,9 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
     completed = attempted - failed
     metrics = {}
     if not trace:
-        kind = "gcdi" if "gcdi" in cell.kinds else "gcda"
-        values = {f"{kind}_tasks_per_s": stats.rate(completed, window_s),
-                  f"{kind}_p95_ms": stats.percentile(lat, 95) * 1e3,
+        values = {f"{cell.family}_tasks_per_s":
+                  stats.rate(completed, window_s),
+                  f"{cell.family}_p95_ms": stats.percentile(lat, 95) * 1e3,
                   "setup_s": setup_s}
         for m in cell.end_to_end:
             v = values[m["name"]]

@@ -1,10 +1,14 @@
 """Arithmetic shared by the per-layer metric readers under ``metrics/``.
 
 A reader gets the observation of one traced window: ``tasks`` (one record
-per task: ``name``, ``kind`` "gcdi" or "gcda", ``wall_s``, ``write_s``,
-``ops`` as (operator kind, seconds) of every operator the engine executed,
-``hops`` (traversal-kernel launches), and for GCDA the shapes ``n``, ``d``,
+per task: ``name``, ``kind`` the family of the cell's end-to-end metrics,
+"gcdi" or "gcda", ``task_kind`` the task's own kind (``kinds/<kind>.py``),
+``wall_s``, ``write_s``, ``ops`` as (operator kind, seconds) of every
+operator the engine executed, ``hops`` (traversal-kernel launches), and
+what the kind's ``record`` adds: for GCDA the shapes ``n``, ``d``,
 ``iters``), and ``device`` (``busy_s``, ``window_s`` from the profiler).
+A task that began no trace of the engine's (a shortest-path search) has no
+``ops`` and no ``spans``.
 Operator seconds are the engine's own (``ExecStats.operators``), fenced on
 the device by its telemetry in a traced run. A reader that finds nothing to
 read returns None.

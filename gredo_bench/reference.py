@@ -9,6 +9,8 @@ from the generated arrays and the write stream.
 * GCDA: matrix generation (multi-hot per group, or numeric columns) and the
   three analytical operators in plain torch, in float64 by default, in row
   blocks for the N x N products.
+* Shortest paths: a breadth-first search per distinct source over the edge
+  columns in their direction, with no bound on the depth.
 
 Imports neither jax, the JAX package nor anything of the program.
 """
@@ -295,6 +297,19 @@ def _sorted_cols(cols: list) -> list[np.ndarray]:
     return [c[order] for c in cols]
 
 
+def table_rows(out, select: list) -> list:
+    """The program's result relation as plain columns, in SELECT order (an
+    answer already in that form passes as it is)."""
+    if isinstance(out, list):
+        return out
+    cols = []
+    for ref in select:
+        c = out.col(ref)
+        cols.append(c.decode(c.codes) if hasattr(c, "codes")
+                    else np.asarray(c))
+    return cols
+
+
 def rows_mismatched(got: list[np.ndarray], want: list[np.ndarray]) -> int:
     """Size of the multiset difference between two row sets, both ways:
     0 when they hold the same rows, each as often."""
@@ -462,3 +477,71 @@ def control_output(task: dict, mats: list, device) -> object:
     for lo, rows in product_blocks(task["op"], mats[0], prec):
         out[lo:lo + rows.shape[0]] = rows
     return out
+
+
+# ---------------------------------------------------------------------------
+# Shortest paths
+# ---------------------------------------------------------------------------
+
+
+def node_ids(data: dict, graph: str) -> dict:
+    """The reference's numbering of ``graph``'s vertices: each label's
+    vertices in a block of their own, in the order the graph lists its
+    labels. ``{label: first node id}`` and, under ``None``, the count."""
+    first, n = {}, 0
+    for label, (_, cols) in data["graphs"][graph]["vertex_tables"].items():
+        first[label] = n
+        n += len(next(iter(cols.values())))
+    first[None] = n
+    return first
+
+
+def hop_distances(n: int, heads: np.ndarray, tails: np.ndarray,
+                  sources: np.ndarray, targets: np.ndarray) -> np.ndarray:
+    """The hop count of a shortest path from ``sources[k]`` to
+    ``targets[k]`` over the ``n`` nodes and the directed edges
+    ``heads[j] -> tails[j]``; -1 where there is none."""
+    heads = np.asarray(heads, dtype=np.int64)
+    order = np.argsort(heads, kind="stable")
+    nbr = np.asarray(tails, dtype=np.int64)[order]
+    start = np.searchsorted(heads[order], np.arange(n + 1))
+    sources = np.asarray(sources, dtype=np.int64)
+    targets = np.asarray(targets, dtype=np.int64)
+    out = np.full(len(sources), -1, dtype=np.int64)
+    for s in np.unique(sources):
+        dist = np.full(n, -1, dtype=np.int64)
+        dist[s] = 0
+        frontier = np.array([s])
+        hop = 0
+        while len(frontier):
+            hop += 1
+            lo, cnt = start[frontier], start[frontier + 1] - start[frontier]
+            at = np.repeat(lo - np.cumsum(cnt) + cnt, cnt) \
+                + np.arange(cnt.sum())
+            nxt = np.unique(nbr[at])
+            nxt = nxt[dist[nxt] < 0]
+            dist[nxt] = hop
+            frontier = nxt
+        mine = sources == s
+        out[mine] = dist[targets[mine]]
+    return out
+
+
+def shortest_paths(data: dict, graph: str, writes: list, src_label: str,
+                   src_vids, dst_label: str, dst_vids,
+                   both_ways: bool = False) -> np.ndarray:
+    """Hop distance of each (source, target) pair of vertex ids over
+    ``graph``'s edges after ``writes``, followed from ``svid`` to
+    ``tvid``; -1 where the target is unreachable. ``both_ways=True``
+    follows every edge in either direction (the control)."""
+    g = data["graphs"][graph]
+    first = node_ids(data, graph)
+    cols = edges_after(data, graph, writes)
+    heads = first[g["src_label"]] + np.asarray(cols["svid"], dtype=np.int64)
+    tails = first[g["dst_label"]] + np.asarray(cols["tvid"], dtype=np.int64)
+    if both_ways:
+        heads, tails = (np.concatenate([heads, tails]),
+                        np.concatenate([tails, heads]))
+    return hop_distances(first[None], heads, tails,
+                         first[src_label] + np.asarray(src_vids),
+                         first[dst_label] + np.asarray(dst_vids))

@@ -16,7 +16,8 @@ MODULES = sorted(p for p in harness.HERE.rglob("*.py")
                  if "tests" not in p.parts)
 # what the reference side may not reach: the program as well
 NO_PROGRAM = {"reference.py", "datagen.py", "traffic.py", "stats.py",
-              "roofline.py", "readers.py", "trace.py"}
+              "roofline.py", "readers.py", "trace.py", "kinds/gcdi.py",
+              "kinds/gcda.py", "kinds/paths.py"}
 
 
 def top_level_imports(path) -> set:

@@ -17,10 +17,11 @@ from pathlib import Path
 import numpy as np
 
 
-def rng(seed: int, stream: int) -> np.random.Generator:
-    """An independent generator per purpose; any whole seed, negative or
-    past 64 bits included."""
-    return np.random.default_rng([seed & (2**64 - 1), stream])
+def rng(seed: int, stream: int, *index: int) -> np.random.Generator:
+    """An independent generator per purpose (and per ``index``, where a
+    draw belongs to one task); any whole seed, negative or past 64 bits
+    included."""
+    return np.random.default_rng([seed & (2**64 - 1), stream, *index])
 
 
 def load(root: Path, name: str) -> dict:
@@ -37,6 +38,7 @@ class Traffic:
 
     def __init__(self, mix: dict, seed: int, data: dict):
         self.mix = mix
+        self.seed = seed
         self.block = [t for t, k in mix["tasks"].items() for _ in range(k)]
         self._order = rng(seed, 1)
         self._rows = rng(seed, 2)
