@@ -158,8 +158,16 @@ class Program:
     def run(self, name: str):
         return self._calls[name]()
 
-    def hops(self) -> int:
-        return self._launches()["batched_hop"]
+    def launches(self) -> dict:
+        """Launches of every kernel package of the program so far, by
+        kernel (``repro_torch.kernels.launch_counts``)."""
+        return self._launches()
+
+    def graph_size(self, graph: str) -> tuple[int, int]:
+        """(vertices, live edges) of ``graph`` as the program holds it now,
+        accepted writes included."""
+        g = self.db.graphs[graph]
+        return g.n_vertices, g.n_live_edges
 
     def last_trace(self):
         """The engine's newest trace: compared before and after a task, it
@@ -362,7 +370,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
                 else None)
         if mark:
             mark.__enter__()
-        hops0 = prog.hops() if trace else 0
+        launches0 = prog.launches() if trace else None
         trace0 = prog.last_trace() if trace else None
         try:
             name, out, t0, t1, t2 = one(i)
@@ -386,10 +394,12 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
             paused += time.perf_counter() - p0
         if trace:
             t = cell.tasks[name]
+            launches = {k: n - launches0[k]
+                        for k, n in prog.launches().items()}
             rec = {"name": name, "kind": cell.family, "task_kind": t["kind"],
                    "t0": t0, "wall_s": t2 - t0, "write_s": t1 - t0,
                    "ops": prog.executed_ops(trace0) if ok else [],
-                   "hops": prog.hops() - hops0,
+                   "hops": launches["batched_hop"], "launches": launches,
                    "spans": prog.spans(trace0) if ok else []}
             if hasattr(cell.kind(name), "record"):
                 rec.update(cell.kind(name).record(t, prog))

@@ -15,7 +15,9 @@ pairs whose distance differs from the reference's breadth-first search
 over the edges after the accepted writes, followed in their direction,
 with no bound on the depth (-1 where unreachable), summed over the kept
 answers; an answer of another length counts every pair. The control reads
-every edge both ways.
+every edge both ways. A traced task's record gives the shapes a search's
+least time is worked out from: ``pairs``, and the searched graph's
+``vertices`` and ``edges`` as the program holds them, writes included.
 """
 import numpy as np
 
@@ -73,3 +75,11 @@ def control(task: dict, data: dict, writes: list, args, device):
     return reference.shortest_paths(data, task["graph"], writes,
                                     task["src_label"], src,
                                     task["dst_label"], dst, both_ways=True)
+
+
+def record(task: dict, prog) -> dict:
+    """The shapes the search's roofline reader needs: the pair count and
+    the graph's vertex and edge counts when the task ran."""
+    vertices, edges = prog.graph_size(task["graph"])
+    return {"pairs": int(task["pairs"]), "vertices": vertices,
+            "edges": edges}

@@ -4,9 +4,12 @@ A reader gets the observation of one traced window: ``tasks`` (one record
 per task: ``name``, ``kind`` the family of the cell's end-to-end metrics,
 "gcdi" or "gcda", ``task_kind`` the task's own kind (``kinds/<kind>.py``),
 ``wall_s``, ``write_s``, ``ops`` as (operator kind, seconds) of every
-operator the engine executed, ``hops`` (traversal-kernel launches), and
-what the kind's ``record`` adds: for GCDA the shapes ``n``, ``d``,
-``iters``), and ``device`` (``busy_s``, ``window_s`` from the profiler).
+operator the engine executed, ``hops`` (traversal-kernel launches),
+``launches`` (``{kernel: launches during the task}`` for every kernel
+package of the program), and what the kind's ``record`` adds: for GCDA the
+shapes ``n``, ``d``, ``iters``; for a shortest-path task ``pairs`` and the
+searched graph's ``vertices`` and ``edges``), and ``device`` (``busy_s``,
+``window_s`` from the profiler).
 A task that began no trace of the engine's (a shortest-path search) has no
 ``ops`` and no ``spans``.
 Operator seconds are the engine's own (``ExecStats.operators``), fenced on
@@ -55,21 +58,41 @@ def ops_ms(obs: dict, kind: str, kinds: tuple):
     return mean_ms([op_seconds(t, kinds) for t in tasks])
 
 
-def roofline_share(obs: dict, kinds: tuple):
-    """Sum of the least times of the operators of ``kinds`` over the sum of
-    their fenced seconds, in percent."""
+def least_over_spent(tasks: list, kinds: tuple, work):
+    """Sum of ``work(task)``'s least times over the sum of the fenced
+    seconds of the operators of ``kinds``, in percent, over the tasks that
+    ran one; None where none did."""
     least = spent = 0.0
-    for t in tasks_of(obs, "gcda"):
+    for t in tasks:
         secs = op_seconds(t, kinds)
         if not secs:
             continue
-        if kinds == REGRESSION:
-            work = roofline.regression_work(t["n"], t["d"], t["iters"])
-        else:
-            work = roofline.product_work(t["n"], t["d"])
-        least += roofline.least_seconds(*work)
+        least += roofline.least_seconds(*work(t))
         spent += secs
     return 100.0 * least / spent if spent else None
+
+
+def roofline_share(obs: dict, kinds: tuple):
+    """The GCDA operators of ``kinds``: their least times over their fenced
+    seconds, in percent."""
+    if kinds == REGRESSION:
+        def work(t):
+            return roofline.regression_work(t["n"], t["d"], t["iters"])
+    else:
+        def work(t):
+            return roofline.product_work(t["n"], t["d"])
+    return least_over_spent(tasks_of(obs, "gcda"), kinds, work)
+
+
+def paths_roofline(obs: dict, kinds: tuple):
+    """The shortest-path tasks' searches (``roofline.bfs_work``: the CSR
+    read once per task, however many sources share it) over the fenced
+    seconds of the operators of ``kinds``, in percent; None where no such
+    operator ran. The operator's name is the program's to choose, so the
+    metric's reader file gives it."""
+    return least_over_spent(
+        [t for t in obs["tasks"] if t["task_kind"] == "paths"], kinds,
+        lambda t: roofline.bfs_work(t["vertices"], t["edges"], t["pairs"]))
 
 
 def idle_share(obs: dict, kind: str):
