@@ -189,6 +189,7 @@ class GredoEngine:
                    "deltastore": _graph_writes,
                    "index": _index_counters,
                    "traversal_kernels": pattern_jit.metrics,
+                   "join": join_mod.metrics,
                    "shard": _shard_metrics}
         if self.observer is not None:
             sources["flight"] = self.observer.metrics
@@ -199,7 +200,8 @@ class GredoEngine:
         """Attach (or build) a telemetry session and register this engine's
         subsystems as registry sources: inter-buffer admission, per-graph
         delta-store write counters, secondary-index maintenance, traversal
-        kernels, shard runtime, and the flight recorder."""
+        kernels, the join probes' paths, shard runtime, and the flight
+        recorder."""
         tel = session if session is not None else telemetry_mod.Telemetry()
         for ns, fn in self._metric_sources().items():
             tel.registry.register_source(ns, fn)
@@ -487,13 +489,15 @@ class GredoEngine:
                                      "oversize")
                                     if k in d))
         lines.append(f"interbuffer: {self.interbuffer.counters()} (cumulative)")
-        tk = {k.split(".", 1)[1]: v
-              for k, v in self.last_registry_delta.items()
-              if k.startswith("traversal_kernels.") and v}
-        if tk:
-            lines.append("traversal kernels (this query): "
-                         + " ".join(f"{k}={v:+g}"
-                                    for k, v in sorted(tk.items())))
+        for ns, title in (("traversal_kernels", "traversal kernels"),
+                          ("join", "join")):
+            d = {k.split(".", 1)[1]: v
+                 for k, v in self.last_registry_delta.items()
+                 if k.startswith(ns + ".") and v}
+            if d:
+                lines.append(f"{title} (this query): "
+                             + " ".join(f"{k}={v:+g}"
+                                        for k, v in sorted(d.items())))
         if self.last_shard_count > 1:
             sm = {k.split(".", 1)[1]: v
                   for k, v in self.last_registry_delta.items()

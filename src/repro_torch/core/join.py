@@ -3,7 +3,9 @@
 Two strategies, as in the paper:
   1. rel/doc x rel/doc — record-level equi-join. The paper uses nested-loop /
      PK-index joins; the vectorized equivalent is a sort+searchsorted
-     equi-join (one gather per probe, no hash tables, fully vectorizable).
+     equi-join (no hash tables, fully vectorizable). Dense integer keys skip
+     the sort and the binary searches: a table indexed by key less the least
+     build key gives each probe its run (or its one row) by a gather.
   2. graph x rel/doc — entity linking: the join filters the graph's vertex or
      edge record set in place and returns the (still-graph) collection, so a
      subsequent match runs on the reduced candidate sets (join pushdown,
@@ -14,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import traversal
+from .deltastore import expand_runs
 from .schema import JoinPred
 from .storage import DictColumn, Graph, RaggedColumn, Table
 
@@ -30,26 +33,110 @@ def _key_arrays(tbl: Table, column: str):
     return np.asarray(col), np.arange(tbl.nrows)
 
 
+# The direct-address path is taken when the build keys span at most this many
+# times the rows of both sides. Its table (an int64 slot or run start per key)
+# then costs a few linear passes over memory of about the inputs' own size,
+# where the sort join pays n log n for the build's sort and a binary search
+# per probe into it.
+DENSE_SPAN = 4
+# Keys beyond this magnitude take the sort path, so that key − least key
+# cannot overflow int64 (see ``_dense_offsets``).
+_KEY_LIMIT = 2 ** 62
+
+
+class _Counters:
+    """How often each probe path ran: ``direct`` (the direct-address table)
+    and ``sorted`` (the sort join). Process-wide and cumulative, as the
+    traversal counters; the engine's per-query view is a registry delta."""
+
+    def __init__(self):
+        self.direct = 0
+        self.sorted = 0
+
+    def metrics(self) -> dict:
+        return {"direct": self.direct, "sorted": self.sorted}
+
+
+COUNTERS = _Counters()
+
+
+def metrics() -> dict:
+    """Telemetry registry source ``join``: both probes' path counts."""
+    return COUNTERS.metrics()
+
+
+def _dense_dtype(dt: np.dtype) -> bool:
+    """Integers that int64 holds whole (uint64 does not)."""
+    return dt.kind == "i" or (dt.kind == "u" and dt.itemsize < 8)
+
+
+def _dense_offsets(build: np.ndarray, probe: np.ndarray):
+    """The one test of both probes for the direct path, and its offsets.
+
+    Where both key arrays are integer, the build is not empty, its keys lie
+    within ±2^62 and span at most ``DENSE_SPAN`` times the rows of both
+    sides, returns ``(span, build_off, probe_off)``: each key less the least
+    build key, as int64, a probe key outside the build's range mapped to
+    ``span`` (one slot past the table, which matches nothing). Else None.
+
+    A probe key far from the build's range wraps in the subtraction, but
+    both its true and its wrapped offset lie outside ``[0, span)``, so
+    clamping the offset read as unsigned to ``span`` is exact."""
+    if not (_dense_dtype(build.dtype) and _dense_dtype(probe.dtype)
+            and len(build)):
+        return None
+    kmin, kmax = int(build.min()), int(build.max())
+    span = kmax - kmin + 1
+    if (kmin < -_KEY_LIMIT or kmax > _KEY_LIMIT
+            or span > DENSE_SPAN * (len(build) + len(probe))):
+        return None
+    build_off = np.subtract(build, kmin, dtype=np.int64)
+    probe_off = np.subtract(probe, kmin, dtype=np.int64)
+    wide = probe_off.view(np.uint64)
+    np.minimum(wide, span, out=wide)
+    return span, build_off, probe_off
+
+
 def equi_join_indices(left: Table, lcol: str, right: Table, rcol: str
                       ) -> tuple[np.ndarray, np.ndarray]:
-    """All (left_row, right_row) pairs with left.lcol == right.rcol.
-    Sort-based: sort right keys, binary-search each left key, expand runs."""
+    """All (left_row, right_row) pairs with left.lcol == right.rcol, left
+    major, equal keys in right-row order (a stable sort's order).
+
+    Dense integer keys (``_dense_offsets``) take a direct-address table:
+    unique build keys one slot per key and one gather per probe; duplicate
+    keys a counting sort whose run starts and lengths come from a bincount.
+    Everything else sorts the right keys, binary-searches each left key and
+    expands the runs. Both give the same pairs in the same order."""
     lk, lrows = _key_arrays(left, lcol)
     rk, rrows = _key_arrays(right, rcol)
     traversal.COUNTERS.cpu_ops += len(lk) + len(rk)
 
-    order = np.argsort(rk, kind="stable")
-    rk_s, rrows_s = rk[order], rrows[order]
-    lo = np.searchsorted(rk_s, lk, side="left")
-    hi = np.searchsorted(rk_s, lk, side="right")
-    counts = hi - lo
-    total = int(counts.sum())
-    l_rep = np.repeat(np.arange(len(lk)), counts)
-    out_off = np.zeros(len(lk) + 1, dtype=np.int64)
-    np.cumsum(counts, out=out_off[1:])
-    pos = np.repeat(lo, counts) + (np.arange(total) - np.repeat(out_off[:-1], counts))
-    traversal.COUNTERS.cpu_ops += total
-    return lrows[l_rep], rrows_s[pos]
+    dense = _dense_offsets(rk, lk)
+    if dense is None:
+        COUNTERS.sorted += 1
+        order = np.argsort(rk, kind="stable")
+        rk_s = rk[order]
+        lo = np.searchsorted(rk_s, lk, side="left")
+        counts = np.searchsorted(rk_s, lk, side="right") - lo
+    else:
+        COUNTERS.direct += 1
+        span, roff, loff = dense
+        runs = np.bincount(roff, minlength=span + 1)   # runs[span] = 0
+        if runs.max() <= 1:
+            slot = np.full(span + 1, -1, dtype=np.int64)
+            slot[roff] = np.arange(len(roff))
+            r = slot[loff]
+            l_rep = np.flatnonzero(r >= 0)
+            traversal.COUNTERS.cpu_ops += len(l_rep)
+            return lrows[l_rep], rrows[r[l_rep]]
+        # numpy's stable sort is a radix sort on 16-bit keys
+        order = np.argsort(roff.astype(np.uint16) if span <= 1 << 16
+                           else roff, kind="stable")
+        start = np.cumsum(runs) - runs
+        lo, counts = start[loff], runs[loff]
+    l_rep, pos = expand_runs(lo, counts)
+    traversal.COUNTERS.cpu_ops += len(pos)
+    return lrows[l_rep], rrows[order[pos]]
 
 
 def join_tables(left: Table, right: Table, pred: JoinPred,
@@ -71,11 +158,23 @@ def join_tables(left: Table, right: Table, pred: JoinPred,
 def member_mask(tbl: Table, col: str, keys: np.ndarray) -> np.ndarray:
     """Boolean mask over ``tbl`` rows whose ``col`` value appears in ``keys``
     (ANY semantics for ragged columns). The shared probe of both semi-join
-    sidings: graph-side candidate masks and table-side reductions."""
+    sidings: graph-side candidate masks and table-side reductions. Dense
+    integer keys (``_dense_offsets``) take a presence bitmap over the keys'
+    range, read by each table key; others a sorted key set."""
     tk, trows = _key_arrays(tbl, col)
+    keys = np.asarray(keys)
     traversal.COUNTERS.cpu_ops += len(tk) + len(keys)
-    keys_u = np.unique(np.asarray(keys))
     hit = np.zeros(tbl.nrows, dtype=bool)
+    dense = _dense_offsets(keys, tk)
+    if dense is not None:
+        COUNTERS.direct += 1
+        span, koff, toff = dense
+        present = np.zeros(span + 1, dtype=bool)   # present[span] = False
+        present[koff] = True
+        hit[trows[present[toff]]] = True
+        return hit
+    COUNTERS.sorted += 1
+    keys_u = np.unique(keys)
     if len(keys_u):
         pos = np.clip(np.searchsorted(keys_u, tk), 0, len(keys_u) - 1)
         np.logical_or.at(hit, trows, keys_u[pos] == tk)
@@ -109,7 +208,6 @@ def match_by_joins(g: Graph, pat) -> Table:
     AgensGraph; sort-merge here). No topology store, no pushdown —
     intermediate results grow multiplicatively, which is exactly the §2.2
     critique. Executed by the physical plan's TableJoinMatch operator."""
-    from .deltastore import expand_runs
     chain_vars = [pat.vertices[0].var] + [e.dst for e in pat.edges]
     edge_vars = [e.var for e in pat.edges]
     if not edge_vars:  # vertex-only pattern: full vertex scan

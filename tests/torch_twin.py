@@ -84,8 +84,11 @@ def op_summary(stats) -> list:
 _TIMES = re.compile(r"\b(ms|pct|seconds|\w*_s|\w*_ms)=[-+\d.e]+%?,? ?")
 # health lines read the process-wide traversal-kernel counters
 # (``pattern_jit.metrics``), which count every device match run earlier in
-# the process by either package
-_PROCESS_WIDE = ("kernel_retries:", "traversal_kernels")
+# the process by either package; the port's join-path counters
+# (``join.metrics``: registry keys ``join.*``, explain's ``join (this
+# query)`` line) are process-wide too, and the reference has none
+_PROCESS_WIDE = ("kernel_retries:", "traversal_kernels", "join (this query)",
+                 "join_direct", "join_sorted")
 
 
 def fresh_matcher_counters(monkeypatch) -> None:
